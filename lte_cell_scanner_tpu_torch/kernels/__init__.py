@@ -1,0 +1,18 @@
+"""Hand-written CUDA kernels of the port: build, binding and launch counts.
+
+Each kernel's wrapper (ops/xcorr_torch.py, ops/fd_demod.py,
+models/viterbi.py) adds one to its entry in :data:`LAUNCHES` where it
+launches the kernel, and nowhere else, so a run can show that the main
+path went through the kernels.
+"""
+
+from __future__ import annotations
+
+KERNELS = ("xcorr_fold", "fd_demod", "viterbi")
+
+LAUNCHES = {name: 0 for name in KERNELS}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

@@ -1,0 +1,107 @@
+"""Greedy peak extraction on the device.
+
+Counterpart of lte_cell_scanner_tpu/ops/peak_jax.py and functionally
+identical to the host search ops/peak.py::peak_search (reference:
+src/searcher.cpp:422-510, Matlab/peak_search.m): after each extraction the
+same PSS row is cleared within +/-274 lags, other rows there below -8 dB,
+and everything below -12 dB. The loop is sequential by nature; each trip
+is a handful of vectorized tensor ops on the (3, 9600) table, and the host
+reads the stop flag only every few trips.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from lte_cell_scanner_tpu_torch.constants import HALF_FRAME, RX_CUTOFF
+from lte_cell_scanner_tpu_torch.models.cell import Cell
+from lte_cell_scanner_tpu_torch.utils.dsp import chi2cdf_inv
+
+MAX_PEAKS = 64  # >= the ~52 the cancellation geometry can possibly yield
+_DB8 = 10.0 ** (-8.0 / 10.0)
+_DB12 = 10.0 ** (-12.0 / 10.0)
+_SYNC_EVERY = 8  # greedy trips between reads of the stop flag
+
+
+def r_th1_normalized(n_comb_xc: int, ds_comb_arm: int,
+                     thresh1_n_nines: int = 12) -> float:
+    """Scalar so that the device threshold is r_norm * sp_incoherent
+    (src/CellSearch.cpp:500-503)."""
+    dof = 2 * n_comb_xc * (2 * ds_comb_arm + 1)
+    r_th1 = chi2cdf_inv(1 - 10.0 ** (-thresh1_n_nines), dof)
+    return float(r_th1 / RX_CUTOFF / 137 / 2 / n_comb_xc
+                 / (2 * ds_comb_arm + 1))
+
+
+def peak_search_device(packed: torch.Tensor, single: torch.Tensor,
+                       r_norm: float, ds_comb_arm: int,
+                       max_peaks: int = MAX_PEAKS) -> torch.Tensor:
+    """Extract up to max_peaks peaks.
+
+    packed (7, 9600): rows 0-2 collapsed pow, 3-5 collapsed frq, 6
+    sp_incoherent; single (3, 9600, n_f). Returns (max_peaks, 4) float32
+    rows [pow, refined_ind, foi, n_id_2]; pow == 0 marks unused slots (a
+    real peak always has pow > 0). Ties go to the first argmax.
+    """
+    dev = packed.device
+    working = packed[0:3].to(torch.float32).clone()
+    frq = packed[3:6].to(torch.int64)
+    z_th1 = (r_norm * packed[6]).to(torch.float32)
+    lag_idx = torch.arange(HALF_FRAME, device=dev)
+    row_idx = torch.arange(3, device=dev)[:, None]
+    offs = torch.arange(-ds_comb_arm, ds_comb_arm + 1, device=dev)
+    out = torch.zeros((max_peaks, 4), dtype=torch.float32, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    for trip in range(max_peaks):
+        flat = torch.argmax(working)
+        n2 = flat // HALF_FRAME
+        ind = flat % HALF_FRAME
+        peak_pow = working[n2, ind]
+        valid = ~done & (peak_pow >= z_th1[ind]) & (peak_pow > 0.0)
+
+        # Refine to the strongest single lag within +/-ds_comb_arm
+        # (src/searcher.cpp:457-465).
+        foi = frq[n2, ind]
+        tws = torch.remainder(ind + offs, HALF_FRAME)
+        best_ind = tws[torch.argmax(single[n2, tws, foi])]
+        rec = torch.stack([peak_pow, best_ind.to(torch.float32),
+                           foi.to(torch.float32), n2.to(torch.float32)])
+        out[trip] = torch.where(valid, rec, out[trip])
+
+        # Cancellation: +/-274 cyclic window.
+        dist = torch.abs(torch.remainder(lag_idx - ind + HALF_FRAME // 2,
+                                         HALF_FRAME) - HALF_FRAME // 2)
+        near = (dist <= 2 * 137)[None, :]
+        same = row_idx == n2
+        w = torch.where(near & same, 0.0, working)
+        w = torch.where(near & ~same & (w < peak_pow * _DB8), 0.0, w)
+        w = torch.where(w < peak_pow * _DB12, 0.0, w)
+        working = torch.where(valid, w, working)
+        done = ~valid
+        if (trip + 1) % _SYNC_EVERY == 0 and bool(done):
+            break
+    return out
+
+
+def peaks_to_cells(peaks: np.ndarray, f_search_set: np.ndarray,
+                   fc_requested: float, fc_programmed: float,
+                   fs_programmed: float = 1.92e6) -> List[Cell]:
+    """Convert the device peak table to Cell records (host side)."""
+    f_search_set = np.asarray(f_search_set, dtype=np.float64)
+    cells: List[Cell] = []
+    for row in np.asarray(peaks, dtype=np.float64):
+        if row[0] <= 0.0:
+            break
+        cells.append(Cell(
+            fc_requested=fc_requested,
+            fc_programmed=fc_programmed,
+            fs_programmed=fs_programmed,
+            pss_pow=float(row[0]),
+            ind=float(row[1]),
+            freq=float(f_search_set[int(row[2])]),
+            n_id_2=int(row[3]),
+        ))
+    return cells

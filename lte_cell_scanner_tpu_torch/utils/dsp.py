@@ -1,0 +1,62 @@
+"""Host-side DSP helpers (NumPy, float64) that the port's planners use.
+
+Conventions follow the reference (include/dsp.h): ``idft`` is unitary
+scaled, ``interp1`` extrapolates linearly like MATLAB, ``wrap`` folds into
+a half-open interval like the WRAP macro of include/macros.h.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+from scipy import special as _special
+
+
+def idft(x: np.ndarray, axis: int = -1) -> np.ndarray:
+    """Unitary-scaled inverse DFT (reference: include/dsp.h:33)."""
+    x = np.asarray(x)
+    n = x.shape[axis]
+    return np.fft.ifft(x, axis=axis) * np.sqrt(n)
+
+
+def udb10(x):
+    return np.power(10.0, np.asarray(x, dtype=np.float64) / 10.0)
+
+
+def interp1(X: np.ndarray, Y: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """MATLAB-style linear interpolation with linear extrapolation
+    (reference: include/dsp.h:151-185); supports complex ``Y``."""
+    X = np.asarray(X, dtype=np.float64)
+    Y = np.asarray(Y)
+    x = np.asarray(x, dtype=np.float64)
+    if len(X) == 1:
+        return np.full(x.shape, Y[0], dtype=Y.dtype)
+    # Segment index for each query point: clamp so that out-of-range points
+    # extrapolate with the first/last segment.
+    idx = np.searchsorted(X, x, side="right") - 1
+    idx = np.clip(idx, 0, len(X) - 2)
+    x0 = X[idx]
+    x1 = X[idx + 1]
+    y0 = Y[idx]
+    y1 = Y[idx + 1]
+    return y0 + (x - x0) * (y1 - y0) / (x1 - x0)
+
+
+def chi2cdf_inv(p: float, k: float) -> float:
+    """Inverse chi-squared CDF (reference: include/dsp.h:188-193)."""
+    return 2.0 * _special.gammaincinv(k / 2.0, p)
+
+
+def wrap(x, lower, upper):
+    """Wrap scalar/array into the half-open interval [lower, upper)."""
+    span = upper - lower
+    return np.mod(np.asarray(x) - lower, span) + lower
+
+
+def matlab_range(start: float, step: float, stop: float) -> np.ndarray:
+    """MATLAB colon operator start:step:stop (stop inclusive, fp-safe)."""
+    if step == 0:
+        raise ValueError("step must be nonzero")
+    if np.sign(stop - start) * np.sign(step) < 0:
+        return np.array([], dtype=np.float64)
+    n = int(np.floor((stop - start) / step)) + 1
+    return start + step * np.arange(n, dtype=np.float64)

@@ -1,0 +1,102 @@
+"""The port's cell search end to end (device="cpu": the kernels' plain
+versions) vs the JAX package's cell_search(backend="jax") on simulator
+captures; device selection; and the rule that the port never imports JAX
+or the JAX package.
+"""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from lte_cell_scanner_tpu.search.cell_search import \
+    cell_search as jax_cell_search
+from lte_cell_scanner_tpu_torch.io.simulator import synthetic_capture
+from lte_cell_scanner_tpu_torch.search import cli
+from lte_cell_scanner_tpu_torch.search.cell_search import (
+    cell_search, generate_search_sets)
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+FIELDS = ("fc_requested", "n_id_2", "n_id_1", "cp_type", "frame_start",
+          "n_ports", "n_rb_dl", "phich_duration", "phich_resource", "sfn")
+
+
+@pytest.mark.parametrize("kw,fset", [
+    # tests/test_simulator.py::test_closed_loop_decode
+    (dict(n_id_1=90, n_id_2=1, cp_type="normal", snr_db=10,
+          freq_offset=7.7e3, n_rb_dl=50, sfn_start=64, seed=3),
+     np.arange(-3, 4) * 5e3),
+    (dict(n_id_1=0, n_id_2=0, cp_type="normal", snr_db=10,
+          freq_offset=-3.3e3, n_rb_dl=6, sfn_start=64, seed=3),
+     np.arange(-3, 4) * 5e3),
+    (dict(n_id_1=167, n_id_2=2, cp_type="extended", snr_db=10,
+          freq_offset=11e3, n_rb_dl=100, sfn_start=64, seed=3),
+     np.arange(-3, 4) * 5e3),
+    # tests/test_device_decode.py::test_device_decode_extended_cp
+    (dict(n_id_1=30, n_id_2=2, cp_type="extended", snr_db=20.0,
+          freq_offset=2e3, n_rb_dl=25, seed=3),
+     np.arange(-2, 3) * 5e3),
+])
+def test_cell_search_matches_jax(kw, fset):
+    cap = synthetic_capture(**kw)
+    got = cell_search(cap, 739e6, f_search_set=fset, device="cpu")
+    want = jax_cell_search(cap, 739e6, f_search_set=fset, backend="jax")
+    assert len(got) == len(want) >= 1
+    for g, w in zip(got, want):
+        assert [getattr(g, f) for f in FIELDS] == \
+            [getattr(w, f) for f in FIELDS]
+        assert abs(g.freq_superfine - w.freq_superfine) < 0.5
+    assert got[0].n_id_cell() == 3 * kw["n_id_1"] + kw["n_id_2"]
+    assert got[0].n_rb_dl == kw["n_rb_dl"]
+
+
+def test_search_sets_full_grid():
+    fcs, fset = generate_search_sets(739e6, 739e6, 100)
+    assert list(fcs) == [739e6] and len(fset) == 31
+    assert fset[0] == -75e3 and fset[-1] == 75e3
+
+
+def test_default_device_needs_cuda(monkeypatch):
+    """device=None means the CUDA card: without one the search raises
+    instead of falling back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cell_search(np.zeros(20000, complex), 739e6)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["--freq-start", "739e6", "--simulate", "-b"])
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_no_jax():
+    files = sorted((REPO / "lte_cell_scanner_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 20
+    for path in files:
+        for name in _imports(path):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "lte_cell_scanner_tpu"), \
+                f"{path.relative_to(REPO)} imports {name}"
+
+
+def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
+    """Without the CUDA toolkit the kernel build raises (no silent plain
+    fallback); importing the package built nothing."""
+    from lte_cell_scanner_tpu_torch.kernels import build
+
+    assert not build._LIBS
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build(["viterbi"])
+    assert build.library_path("viterbi").parent == tmp_path
