@@ -4,21 +4,30 @@ NVIDIA card.
 
     python3 chip_smoke.py
 
-Phases; the script exits non-zero if any fails:
+Two paths of the port run on the card: the cell search on one capture
+(search/cell_search.py) and the batched tracker engine (tracker/,
+LTETracker). Phases; the script exits non-zero if any fails:
 
-1. Print the card (nvidia-smi name and power limit) and build the three
-   CUDA kernels from csrc/ (one nvcc each, started together).
-2. Hold each kernel against its plain PyTorch version at the shapes of the
-   main path: the scan at 80 ms and the full 31-hypothesis grid (plus an
-   extreme +-600 kHz grid), the symbol demod and the Viterbi decoder at the
-   MIB batch of 64 candidates (25,216 windows, 768 codewords).
-3. Drive the main path, cell_search on simulator captures at 739 MHz with
+1. Print the card (nvidia-smi name and power limit) and build the CUDA
+   sources from csrc/ (one nvcc each, started together).
+2. Hold each kernel against its plain PyTorch version at the shapes of its
+   path: the scan at 80 ms and the full 31-hypothesis grid (plus an
+   extreme +-600 kHz grid), the symbol demod's MIB mode and the Viterbi
+   decoder at the MIB batch of 64 candidates (25,216 windows, 768
+   codewords); the symbol demod's stream mode and the Viterbi decoder on
+   the inputs of a real tracker cycle at full width (96 cells x 300 ms of
+   signal: 403,200 windows, ~720 codewords), recorded from the capacity
+   engine's warm-up cycles.
+3. Drive each path with the kernels' launch counts set to 0 just before
+   and read just after: cell_search on simulator captures at 739 MHz with
    the 31-hypothesis grid (normal CP / 50 RB and extended CP / 100 RB),
-   with the kernels' launch counts set to 0 just before and read just
-   after; check the decoded cells against the simulator's truth and
-   against the same search through the plain versions on the CPU.
+   checked against the simulator's truth and the same search through the
+   plain versions on the CPU; LTETracker on 400 blocks of a simulated cell
+   (cell 271), checked against the same run on the CPU; both CLIs.
 4. Time each kernel, its plain version and the end-to-end search with CUDA
-   events (3 warm-up runs, median of 20).
+   events (3 warm-up runs, median of 20); time the tracker's capacity run
+   (96 replicated cells, 300 ms cycles, host clock ending in a sync,
+   median cycle), its stage split and its device-busy share.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
@@ -27,6 +36,7 @@ this file, it exits with 2 and prints no result.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -49,6 +59,18 @@ CAPTURES = {
 }
 CELL_FIELDS = ("n_id_2", "n_id_1", "cp_type", "frame_start", "n_ports",
                "n_rb_dl", "phich_duration", "phich_resource", "sfn")
+# The tracker's simulated cell (tests/test_batch_tracker.py::sim_signal):
+# cell 271, 1 port, normal CP, 50 RB, at +4 kHz.
+TRACKER_SIG = dict(n_id_1=90, n_id_2=1, snr_db=15, freq_offset=4e3,
+                   sfn_start=0, seed=5)
+# Capacity run at full width (the JAX package's tools/bench_tracker.py
+# measure(cells=96, chunk_ms=300)): 96 replicas of the tracked cell, 300 ms
+# of signal per engine cycle; 2 warm-up cycles, 5 timed, 1 profiled.
+CAP_CELLS, CHUNK_MS = 96, 300.0
+WARM_CYCLES, TIMED_CYCLES, PROFILED_CYCLES = 2, 5, 1
+# Each path's kernels: a path's run must launch every one of them.
+SEARCH_KERNELS = ("xcorr_fold", "fd_demod", "viterbi")
+TRACKER_KERNELS = ("fd_demod_stream", "viterbi")
 
 failures = []
 
@@ -149,14 +171,16 @@ def stage_breakdown(capbuf, cp: str, fset) -> None:
           + ", ".join(f"{n} {t:.3f} ms" for n, t in parts))
 
 
-def device_busy(fn, wall_ms: float) -> None:
+def device_busy(fn, wall_ms: float, warm: bool = True) -> None:
     """Device time of one call under torch.profiler against the unprofiled
-    wall time: the device's busy share, and the kernels that fill it."""
+    wall time: the device's busy share, and the kernels that fill it.
+    ``warm`` runs fn once unprofiled first."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -182,6 +206,103 @@ def bound(flops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
+def harvest_pdus(n_pdus: int):
+    """Run the tracker once on the card and record the descriptor PDUs
+    its one tracked cell receives, plus the raw uint8 blocks they index
+    into (the JAX package's tools/bench_tracker.py::_collect_pdus)."""
+    from lte_cell_scanner_tpu_torch.io.simulator import synthetic_capture
+    from lte_cell_scanner_tpu_torch.tracker.runtime import (LTETracker,
+                                                            playback_source)
+    from lte_cell_scanner_tpu_torch.tracker.state import TrackedCell
+
+    # 14,000 symbols per second of signal, 192 blocks per second, plus
+    # ~0.4 s for the searcher to acquire the cell.
+    n_blocks = int(np.ceil(n_pdus / 14000 * 192)) + 80
+    sig = synthetic_capture(n_subframes=n_blocks * 10000 // 1920 + 1,
+                            **TRACKER_SIG)
+    pdus, raw = [], []
+    orig_push = TrackedCell.push_pdu
+
+    def tap(self, pdu):
+        pdus.append(copy.copy(pdu))
+        orig_push(self, pdu)
+
+    def source():
+        for blk in playback_source(sig):
+            raw.append(blk)
+            yield blk
+
+    trk = LTETracker(FC, initial_freq_offset=4000.0, engine_every=20)
+    TrackedCell.push_pdu = tap
+    try:
+        trk.run(source(), max_blocks=n_blocks)
+    finally:
+        TrackedCell.push_pdu = orig_push
+    return pdus, raw, trk.cells
+
+
+class CapacityRun:
+    """CAP_CELLS replicas of one tracked cell (distinct serials, never
+    dropped) on one engine, fed CHUNK_MS of harvested PDUs per cycle, so
+    the full locked-tracker path runs: demod, stats, MIB decodes."""
+
+    STAGES = (("_dispatch_demod", "demod dispatch"),
+              ("_host_route", "host route"),
+              ("_dispatch_stats_dispatch", "stats"),
+              ("_ingest_demod", "ingest"),
+              ("_stats_finish", "stats"),
+              ("_finalize", "finalize+MIB"))
+
+    def __init__(self, pdus, raw, proto):
+        from lte_cell_scanner_tpu_torch.tracker.batch_runtime import (
+            BatchTrackerEngine)
+        from lte_cell_scanner_tpu_torch.tracker.state import (GlobalState,
+                                                              TrackedCell)
+
+        state = GlobalState(fc_requested=FC, fc_programmed=FC,
+                            fs_programmed=1.92e6, frequency_offset=4000.0)
+        self.cells = [TrackedCell(
+            n_id_cell=proto.n_id_cell, n_ports=proto.n_ports,
+            cp_type=proto.cp_type, n_rb_dl=proto.n_rb_dl,
+            phich_duration=proto.phich_duration,
+            phich_resource=proto.phich_resource,
+            frame_timing=proto.frame_timing, serial_num=m,
+            drop_threshold=float("inf")) for m in range(CAP_CELLS)]
+        self.engine = BatchTrackerEngine(state)
+        for blk in raw:
+            self.engine.push_raw(blk)
+        self.pdus = pdus
+        self.fed = 0
+        self.chunk = int(CHUNK_MS / 1000 * proto.n_symb_dl * 2 * 1000)
+        self.signal_s = self.chunk / (proto.n_symb_dl * 2 * 1000)
+        # Host seconds per stage in the current cycle (no extra syncs: a
+        # stage that waits for a device result carries the wait).
+        self.stage_s = {}
+        for attr, label in self.STAGES:
+            setattr(self.engine, attr,
+                    self._timed(label, getattr(self.engine, attr)))
+
+    def _timed(self, label, fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                self.stage_s[label] = (self.stage_s.get(label, 0.0)
+                                       + time.perf_counter() - t0)
+        return run
+
+    def cycle(self) -> None:
+        hi = self.fed + self.chunk
+        if hi > len(self.pdus):
+            raise RuntimeError("capacity run: harvested PDUs exhausted")
+        for c in self.cells:
+            c.fifo.extend(self.pdus[self.fed:hi])
+        self.stage_s = {}
+        self.engine.process_all(self.cells)
+        self.fed = hi
+
+
 def main() -> int:
     import torch
 
@@ -195,13 +316,16 @@ def main() -> int:
         from lte_cell_scanner_tpu_torch.kernels.build import build
         from lte_cell_scanner_tpu_torch.models import viterbi
         from lte_cell_scanner_tpu_torch.ops import mib_torch, xcorr_torch
-        from lte_cell_scanner_tpu_torch.ops.fd_demod import (fd_demod,
-                                                             fd_demod_plain)
+        from lte_cell_scanner_tpu_torch.ops.fd_demod import (
+            fd_demod, fd_demod_plain, fd_demod_stream, fd_demod_stream_plain)
         from lte_cell_scanner_tpu_torch.ops.sync_torch import sss_foe_batch
         from lte_cell_scanner_tpu_torch.ops.peak_torch import (
             peak_search_device, peaks_to_cells, r_th1_normalized)
         from lte_cell_scanner_tpu_torch.search.cell_search import (
             cell_search, dedup, generate_search_sets)
+        from lte_cell_scanner_tpu_torch.tracker import batch_runtime as br
+        from lte_cell_scanner_tpu_torch.tracker.runtime import (
+            LTETracker, playback_source)
         from lte_cell_scanner_tpu_torch.utils.device import full_f32_matmuls
     except ImportError as e:
         print(f"chip_smoke: the port's package is not beside this script: "
@@ -220,7 +344,8 @@ def main() -> int:
     t0 = time.perf_counter()
     built = build()
     print(f"build: {time.perf_counter() - t0:.2f} s wall for "
-          f"{len(built)} kernels (parallel nvcc)")
+          f"{len(built)} sources of {len(kernels.KERNELS)} kernels "
+          "(parallel nvcc)")
     for name, (sec, log) in built.items():
         print(f"  {name}: {sec:.2f} s")
         for line in log.splitlines():
@@ -301,6 +426,60 @@ def main() -> int:
         print(f"  plain winner-vs-runner-up gap at the mismatching lanes: "
               f"{gap.cpu().numpy().tolist()[:16]}")
 
+    # The tracker's kernels on the inputs of real full-width cycles: the
+    # capacity engine's warm-up cycles, with the symbol demod's and the
+    # Viterbi decoder's arguments recorded.
+    t0 = time.perf_counter()
+    n_cycles = WARM_CYCLES + TIMED_CYCLES + PROFILED_CYCLES
+    pdus, raw, tracked = harvest_pdus(n_cycles * int(CHUNK_MS * 14))
+    check([c.n_id_cell for c in tracked] == [271],
+          f"capacity harvest: the tracker on the card tracks "
+          f"{[c.n_id_cell for c in tracked]}, want [271]")
+    cap_run = CapacityRun(pdus, raw, tracked[0])
+    rec = {}
+    orig_fd, orig_dec = br.fd_demod_stream, br.lte_conv_decode_batch
+
+    def tap_fd(*args):
+        rec["fd"] = tuple(a.clone() for a in args)
+        return orig_fd(*args)
+
+    def tap_dec(d_llr):
+        if d_llr.shape[0] > rec.get("dec", d_llr[:0]).shape[0]:
+            rec["dec"] = d_llr.clone()
+        return orig_dec(d_llr)
+
+    br.fd_demod_stream, br.lte_conv_decode_batch = tap_fd, tap_dec
+    try:
+        for _ in range(WARM_CYCLES):
+            cap_run.cycle()
+    finally:
+        br.fd_demod_stream, br.lte_conv_decode_batch = orig_fd, orig_dec
+    torch.cuda.synchronize()
+    print(f"tracker capacity set-up: {len(pdus)} PDUs harvested, "
+          f"{WARM_CYCLES} warm-up cycles of {CAP_CELLS} cells x "
+          f"{CHUNK_MS:.0f} ms, {time.perf_counter() - t0:.1f} s", flush=True)
+    str_args = rec["fd"]
+    n_str = str_args[1].shape[0]
+    got = fd_demod_stream(*str_args)
+    want = fd_demod_stream_plain(*str_args)
+    str_err = float((got - want).abs().max())
+    str_max = float(want.abs().max())
+    del got, want
+    check(n_str == CAP_CELLS * cap_run.chunk and str_err <= 1e-4 * str_max,
+          f"fd_demod_stream N={n_str} (stream {str_args[0].shape[0]} "
+          f"samples): max abs err {str_err:.3e} (tolerance 1e-4 * max "
+          f"{str_max:.3e})")
+    dec = rec["dec"]
+    n_trk_cw = dec.shape[0]
+    llr_trk = dec.to(torch.float32).transpose(1, 2).reshape(
+        n_trk_cw, dec.shape[2] // 4, 12).permute(1, 2, 0).contiguous()
+    bad = (viterbi.viterbi_tl(llr_trk) != viterbi.viterbi_tl_plain(llr_trk)
+           ).any(dim=0).nonzero().flatten()
+    check(len(bad) == 0,
+          f"viterbi at the tracker batch L={n_trk_cw}: {len(bad)} "
+          "codeword(s) differ from the plain version (bits must be "
+          "identical)")
+
     # The wrappers refuse what the kernels do not take.
     def refuses(fn) -> bool:
         try:
@@ -313,7 +492,12 @@ def main() -> int:
         cap2.double(), tpl31, starts31, plan31.n_comb_xc))
           and refuses(lambda: fd_demod(cap_ri, demod_args[0][::2],
                                        *demod_args[1:]))
-          and refuses(lambda: viterbi.viterbi_tl(llr_tl[:, :6])),
+          and refuses(lambda: viterbi.viterbi_tl(llr_tl[:, :6]))
+          and refuses(lambda: fd_demod_stream(str_args[0].float(),
+                                              *str_args[1:]))
+          and refuses(lambda: fd_demod_stream(str_args[0],
+                                              str_args[1].long(),
+                                              *str_args[2:])),
           "the kernel wrappers raise on a bad dtype, shape or layout")
 
     # ---- 3. the main path, with the launch counts.
@@ -326,9 +510,10 @@ def main() -> int:
         found[cp] = dedup(cell_search(c, FC, f_search_set=fset31))
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    print(f"main path launches: {json.dumps(launches)}")
-    for name, n in launches.items():
-        check(n > 0, f"{name} launched {n} time(s) on the main path")
+    print(f"search path launches: {json.dumps(launches)}")
+    for name in SEARCH_KERNELS:
+        check(launches[name] > 0, f"{name} launched {launches[name]} "
+              "time(s) on the search path")
     for cp, cells in found.items():
         got = [(c.n_id_cell(), c.cp_type, c.n_rb_dl, c.sfn, c.n_ports)
                for c in cells]
@@ -343,6 +528,43 @@ def main() -> int:
             for a, b in zip(cells, ref))
         check(same, f"{cp} CP capture: the card's cells equal the plain "
               "versions' on the CPU (freq_superfine within 0.5 Hz)")
+
+    # The tracker path: 400 blocks (2.08 s) of the simulated cell.
+    sig_trk = synthetic_capture(n_subframes=400, **TRACKER_SIG)
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    trk = LTETracker(FC, initial_freq_offset=4000.0)
+    trk.run(playback_source(sig_trk), max_blocks=400)
+    torch.cuda.synchronize()
+    trk_launches = dict(kernels.LAUNCHES)
+    t_trk = time.perf_counter() - t0
+    print(f"tracker path launches: {json.dumps(trk_launches)} "
+          f"({t_trk:.1f} s for 400 blocks)")
+    for name in TRACKER_KERNELS:
+        check(trk_launches[name] > 0, f"{name} launched "
+              f"{trk_launches[name]} time(s) on the tracker path")
+    st = trk.status()
+    got = [(c["n_id_cell"], c["health"]) for c in st["cells"]]
+    check(got == [(271, 1.0)] and st["cells"][0]["mib_successes"] > 10
+          and abs(st["frequency_offset"] - 4000.0) < 20.0,
+          f"tracker on the card: cells (id, health) {got}, MIB decodes "
+          f"{[c['mib_successes'] for c in st['cells']]} (want > 10), FO "
+          f"{st['frequency_offset']:.3f} Hz (want 4000 +- 20)")
+    ref = LTETracker(FC, initial_freq_offset=4000.0, device="cpu")
+    ref.run(playback_source(sig_trk), max_blocks=400)
+    rs = ref.status()
+    same = ([c["n_id_cell"] for c in st["cells"]]
+            == [c["n_id_cell"] for c in rs["cells"]]) and all(
+        a["mib_successes"] == b["mib_successes"]
+        and abs(a["frame_timing"] - b["frame_timing"]) < 0.1
+        for a, b in zip(st["cells"], rs["cells"]))
+    check(same and abs(st["frequency_offset"] - rs["frequency_offset"]) < 2,
+          "tracker: the card's run equals the plain versions' on the CPU "
+          "(cells, MIB decodes; FO within 2 Hz: card "
+          f"{st['frequency_offset']:.4f}, CPU {rs['frequency_offset']:.4f}; "
+          f"frame timing within 0.1: card "
+          f"{[round(c['frame_timing'], 4) for c in st['cells']]}, CPU "
+          f"{[round(c['frame_timing'], 4) for c in rs['cells']]})")
 
     # ---- 4. timing.
     t_scan = cuda_ms(lambda: xcorr_torch.xcorr_fold(cap2, tpl31, starts31,
@@ -379,6 +601,47 @@ def main() -> int:
         line.split()[:1] == ["271"] for line in cli.stdout.splitlines()),
           "the CLI (--simulate, on the card) finds cell 271")
 
+    trk_cli = subprocess.run(
+        [sys.executable, "-m", "lte_cell_scanner_tpu_torch.tracker.cli",
+         "-f", "739e6", "--simulate", "--blocks", "400"],
+        cwd=HERE, capture_output=True, text=True, timeout=300)
+    print(trk_cli.stdout.strip().splitlines()[-3:] if trk_cli.stdout
+          else trk_cli.stderr[-2000:])
+    check(trk_cli.returncode == 0 and any(
+        line.split()[:1] == ["271"] for line in trk_cli.stdout.splitlines()),
+          "the tracker CLI (--simulate --blocks 400, on the card) tracks "
+          "cell 271")
+
+    # The tracker's capacity run, continuing the warm engine of phase 2.
+    walls, splits = [], []
+    for _ in range(TIMED_CYCLES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cap_run.cycle()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        splits.append(dict(cap_run.stage_s))
+    cyc_ms = float(np.median(walls))
+    cells_rt = CAP_CELLS * cap_run.signal_s / (cyc_ms / 1e3)
+    print(f"tracker capacity: {CAP_CELLS} cells x {CHUNK_MS:.0f} ms cycles: "
+          f"{cyc_ms:.3f} ms per cycle (median of {TIMED_CYCLES}: "
+          f"{', '.join(f'{w:.3f}' for w in walls)}), {cells_rt:.2f} cells "
+          "in realtime")
+    labels = dict.fromkeys(label for _, label in CapacityRun.STAGES)
+    print("  stages (host clock, median ms per cycle; a stage that waits "
+          "for a device result carries the wait): " + ", ".join(
+              f"{lb} {np.median([sp.get(lb, 0.0) for sp in splits]) * 1e3:.3f}"
+              for lb in labels))
+    device_busy(cap_run.cycle, cyc_ms, warm=False)
+    mibs = [c.mib_decode_successes for c in cap_run.cells]
+    check(min(mibs) > 0 and all(c.health == 1.0 for c in cap_run.cells),
+          f"capacity run: every replica decodes its MIB (min {min(mibs)}, "
+          f"total {sum(mibs)} decodes) at health 1.0")
+    t_str = cuda_ms(lambda: fd_demod_stream(*str_args))
+    t_str_plain = cuda_ms(lambda: fd_demod_stream_plain(*str_args))
+    t_vit_trk = cuda_ms(lambda: viterbi.viterbi_tl(llr_trk))
+    t_vit_trk_plain = cuda_ms(lambda: viterbi.viterbi_tl_plain(llr_trk))
+
     n_f, n_comb = len(fset31), plan31.n_comb_xc
     scan_b = bound(n_ch * 9600 * n_comb * (137 * 8 + 3),
                    4 * (2 * n_cap + n_ch * 2 * 137 + n_f * n_comb
@@ -386,10 +649,21 @@ def main() -> int:
     fd_b = bound(n_win * (128 * 72 * 8 + 128 * 8 + 72 * 10),
                  8 * n_cap + n_win * 4 * 4 + 4 * (2 * 128 * 72 + 72)
                  + n_win * 72 * 8)
-    n_steps = llr_tl.shape[0]
-    vit_b = bound(n_cw * n_steps * (2 * 1024 * 24 + 64 * 64 * 16 * 2
+    str_b = bound(n_str * (128 * 72 * 8 + 128 * 12 + 72 * 10),
+                  str_args[0].numel() + n_str * 4 * 4
+                  + 4 * (2 * 128 * 72 + 72) + n_str * 72 * 8)
+
+    def vit_bound(llr):
+        n_steps, _, n = llr.shape
+        return bound(n * n_steps * (2 * 1024 * 24 + 64 * 64 * 16 * 2
                                     + 64 * 16 * 2),
-                  4 * (llr_tl.numel() + 12 * 1024 + 1024 * 4 + 40 * n_cw))
+                     4 * (llr.numel() + 12 * 1024 + 1024 * 4
+                          + 4 * n_steps * n))
+
+    vit_b, vit_trk_b = vit_bound(llr_tl), vit_bound(llr_trk)
+    print(f"viterbi at the tracker batch L={n_trk_cw}: {t_vit_trk:.4f} ms "
+          f"(plain {t_vit_trk_plain:.4f} ms, bound {vit_trk_b[0]:.4f} ms by "
+          f"{vit_trk_b[1]})")
     rows = [
         dict(name="xcorr_fold", route="cuda",
              source="lte_cell_scanner_tpu_torch/csrc/xcorr_fold.cu",
@@ -404,10 +678,17 @@ def main() -> int:
              launches=launches["fd_demod"], max_abs_err=fd_err, ms=t_fd,
              plain_ms=t_fd_plain, bound_ms=fd_b[0], bound_by=fd_b[1],
              library_ms=None),
+        dict(name="fd_demod_stream", route="cuda",
+             source="lte_cell_scanner_tpu_torch/csrc/fd_demod.cu",
+             replaces="lte_cell_scanner_tpu/ops/fd_demod_pallas.py:58 (K4, "
+                      "tracker mode)",
+             launches=trk_launches["fd_demod_stream"], max_abs_err=str_err,
+             ms=t_str, plain_ms=t_str_plain, bound_ms=str_b[0],
+             bound_by=str_b[1], library_ms=None),
         dict(name="viterbi", route="cuda",
              source="lte_cell_scanner_tpu_torch/csrc/viterbi.cu",
              replaces="lte_cell_scanner_tpu/models/viterbi_pallas.py:63 (K5)",
-             launches=launches["viterbi"],
+             launches=launches["viterbi"] + trk_launches["viterbi"],
              max_abs_err=vit_err, ms=t_vit,
              plain_ms=t_vit_plain, bound_ms=vit_b[0], bound_by=vit_b[1],
              library_ms=None),

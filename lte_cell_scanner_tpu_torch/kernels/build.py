@@ -1,12 +1,14 @@
 """Build the CUDA sources under ``csrc/`` with nvcc and bind them with ctypes.
 
-Each ``csrc/<name>.cu`` exports one ``extern "C"`` launcher that takes raw
-device pointers and a CUDA stream and returns ``cudaGetLastError()``. It
-is compiled for Hopper (``sm_90a``) into a shared library under
-``build/kernels/`` at the root of the checkout, named by a hash of its
-source so that an edited source is rebuilt. Nothing is built or loaded at
-import time: the first launch builds what it needs, and
-:func:`build` compiles several sources at once, one nvcc process each.
+Each ``csrc/<source>.cu`` exports one ``extern "C"`` launcher per kernel
+(``fd_demod.cu`` two: the MIB and the stream mode of one kernel body) that
+takes raw device pointers and a CUDA stream and returns
+``cudaGetLastError()``. A source is compiled for Hopper (``sm_90a``) into
+a shared library under ``build/kernels/`` at the root of the checkout,
+named by a hash of its source so that an edited source is rebuilt.
+Nothing is built or loaded at import time: the first launch builds what
+it needs, and :func:`build` compiles several sources at once, one nvcc
+process each.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Tuple
 
 from lte_cell_scanner_tpu_torch.kernels import KERNELS
 
@@ -30,15 +32,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# Launcher name and argument types of each kernel's C interface.
+_FD_DEMOD_ARGS = (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P)
+# Source, launcher name and argument types of each kernel's C interface.
 _SIGNATURES = {
-    "xcorr_fold": ("xcorr_fold_launch", (_P, _I, _P, _P, _I, _I, _P, _P)),
-    "fd_demod": ("fd_demod_launch",
-                 (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P)),
-    "viterbi": ("viterbi_launch", (_P, _I, _I, _P, _P, _P, _P)),
+    "xcorr_fold": ("xcorr_fold", "xcorr_fold_launch",
+                   (_P, _I, _P, _P, _I, _I, _P, _P)),
+    "fd_demod": ("fd_demod", "fd_demod_launch", _FD_DEMOD_ARGS),
+    "fd_demod_stream": ("fd_demod", "fd_demod_stream_launch", _FD_DEMOD_ARGS),
+    "viterbi": ("viterbi", "viterbi_launch", (_P, _I, _I, _P, _P, _P, _P)),
 }
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[str, ctypes.CDLL] = {}     # by source
+_FNS: Dict[str, Callable[..., int]] = {}  # by kernel
 
 
 def _nvcc() -> str:
@@ -53,14 +58,15 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+def library_path(source: str) -> Path:
+    src = CSRC / f"{source}.cu"
     digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    return BUILD_DIR / f"{source}-{digest}.so"
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, Tuple[float, str]]:
-    """Compile the named sources that are not built yet, all at once.
+    """Compile the sources of the named kernels that are not built yet,
+    all at once.
 
     Returns, per source, the wall seconds its build took and nvcc's output
     (ptxas' register and shared-memory report), or (0.0, "") for a library
@@ -70,7 +76,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Tuple[float, str]]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     done: Dict[str, Tuple[float, str]] = {}
     procs = {}
-    for name in names:
+    for name in dict.fromkeys(_SIGNATURES[n][0] for n in names):
         out = library_path(name)
         if out.exists():
             done[name] = (0.0, "")
@@ -95,16 +101,19 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Tuple[float, str]]:
 
 def launcher(name: str):
     """The ctypes function of a kernel's C launcher, built on first use."""
-    symbol, argtypes = _SIGNATURES[name]
-    lib = _LIBS.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
+    fn = _FNS.get(name)
+    if fn is None:
+        source, symbol, argtypes = _SIGNATURES[name]
+        lib = _LIBS.get(source)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(source)))
+            _LIBS[source] = lib
         fn = getattr(lib, symbol)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return getattr(lib, symbol)
+        _FNS[name] = fn
+    return fn
 
 
 def check_launch(name: str, code: int) -> None:

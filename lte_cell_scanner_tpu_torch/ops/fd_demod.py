@@ -1,10 +1,16 @@
-"""Fused OFDM symbol demodulation of the MIB chain (the ``fd_demod`` CUDA
-kernel) and its plain PyTorch version.
+"""Fused OFDM symbol demodulation (one CUDA kernel body, csrc/fd_demod.cu,
+in two modes) and the plain PyTorch version of each mode.
 
-Counterpart of lte_cell_scanner_tpu/ops/fd_demod_pallas.py in its MIB
-mode (f32 samples, ``pre_bpo=True``, the 128->72 DFT of
-ops/mib_torch.py::_dft72). For the window at sample ``idx``, with
-a = idx // 128 and b = idx % 128:
+Counterpart of lte_cell_scanner_tpu/ops/fd_demod_pallas.py:
+
+- ``fd_demod``: the MIB mode (f32 samples, ``pre_bpo=True``, the 128->72
+  DFT of ops/mib_torch.py::_dft72), on the search path;
+- ``fd_demod_stream``: the tracker (stream) mode (the raw u8 I/Q stream,
+  ``pre_bpo=False``, tracker/batch_frontend.py::_dft_mats), on the
+  tracker engine's path.
+
+In MIB mode, for the window at sample ``idx``, with a = idx // 128 and
+b = idx % 128:
 
   g[c]   = row a at lanes c >= b, row a+1 below    (cyclic blend)
   j[c]   = c - b + 128*(c < b)                     (true sample index)
@@ -12,8 +18,13 @@ a = idx // 128 and b = idx % 128:
   y      = x @ (wr + i*wi)                         (128 -> 72 bins)
   out    = y * exp(-i*2*pi*(late - b)*cn/128)      (timing ramp)
 
+The stream mode converts the samples (v - 127)/128, rotates by foc*j only
+and applies the bulk phase after the DFT with the ramp:
+out = y * exp(i*(bpo - (2*pi/128)*(late - b)*cn)).
+
 The kernel gathers the two 128-aligned rows itself, with the zero pad past
-the capture and the row clamp of ops/sync_torch.py::_aligned_wins.
+the samples (u8 127 in stream mode) and the row clamp of
+ops/sync_torch.py::_aligned_wins.
 """
 
 from __future__ import annotations
@@ -26,6 +37,10 @@ from lte_cell_scanner_tpu_torch.kernels import LAUNCHES
 from lte_cell_scanner_tpu_torch.kernels.build import check_launch, launcher
 from lte_cell_scanner_tpu_torch.ops.sync_torch import (_aligned_wins, cmul,
                                                        rot_pair)
+from lte_cell_scanner_tpu_torch.tracker.batch_frontend import (_cn32,
+                                                              _dft_mats,
+                                                              get_fd_batch,
+                                                              on_device)
 
 
 def fd_demod_plain(cap, idx, foc, bpo, late, wr, wi, cn):
@@ -51,26 +66,58 @@ def fd_demod(cap: torch.Tensor, idx: torch.Tensor, foc: torch.Tensor,
     """
     if cap.device.type == "cpu":
         return fd_demod_plain(cap, idx, foc, bpo, late, wr, wi, cn)
+    return _launch("fd_demod", cap, torch.float32, idx, foc, bpo, late, wr,
+                   wi, cn)
+
+
+def fd_demod_stream_plain(seg_u8, starts, foc, bpo, late):
+    """Plain PyTorch version of the ``fd_demod_stream`` kernel (same
+    arguments): (seg - 127)/128 -> aligned-blend windows -> get_fd_batch,
+    the XLA program of the JAX engine's _demod_stream_jit."""
+    x = (seg_u8.to(torch.float32) - 127.0) * (1.0 / 128.0)
+    g, j, b = _aligned_wins(x, starts)
+    return get_fd_batch(g, foc, bpo, late - b.to(torch.float32), j=j)
+
+
+def fd_demod_stream(seg_u8: torch.Tensor, starts: torch.Tensor,
+                    foc: torch.Tensor, bpo: torch.Tensor,
+                    late: torch.Tensor) -> torch.Tensor:
+    """Demodulate N symbol windows of the tracker's raw sample stream.
+
+    seg_u8 (L, 2) u8 raw I/Q; starts (N,) i32 window starts in seg; foc,
+    bpo, late (N,) f32 (FOC rate per sample, bulk phase, fractional
+    lateness). Returns (N, 72, 2) f32. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel.
+    """
+    if seg_u8.device.type == "cpu":
+        return fd_demod_stream_plain(seg_u8, starts, foc, bpo, late)
+    wr, wi = on_device(_dft_mats, seg_u8.device)
+    return _launch("fd_demod_stream", seg_u8, torch.uint8, starts, foc, bpo,
+                   late, wr, wi, on_device(_cn32, seg_u8.device))
+
+
+def _launch(name, samples, dtype, idx, foc, bpo, late, wr, wi, cn):
+    """Check the arguments of either mode and launch its kernel."""
     n = idx.shape[0]
-    want = ((cap, torch.float32, (cap.shape[0], 2)),
+    want = ((samples, dtype, (samples.shape[0], 2)),
             (idx, torch.int32, (n,)), (foc, torch.float32, (n,)),
             (bpo, torch.float32, (n,)), (late, torch.float32, (n,)),
             (wr, torch.float32, (128, 72)), (wi, torch.float32, (128, 72)),
             (cn, torch.float32, (72,)))
-    for t, dtype, shape in want:
-        if t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous() or t.device != cap.device:
-            raise ValueError(f"fd_demod: want a contiguous {dtype} {shape} on "
-                             f"{cap.device}, got {t.dtype} {tuple(t.shape)} "
-                             f"on {t.device}")
-    out = torch.empty((n, 72, 2), dtype=torch.float32, device=cap.device)
+    for t, dt, shape in want:
+        if t.dtype != dt or tuple(t.shape) != shape \
+                or not t.is_contiguous() or t.device != samples.device:
+            raise ValueError(f"{name}: want a contiguous {dt} {shape} on "
+                             f"{samples.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    out = torch.empty((n, 72, 2), dtype=torch.float32, device=samples.device)
     if n == 0:
         return out
-    code = launcher("fd_demod")(
-        cap.data_ptr(), cap.shape[0], idx.data_ptr(), foc.data_ptr(),
+    code = launcher(name)(
+        samples.data_ptr(), samples.shape[0], idx.data_ptr(), foc.data_ptr(),
         bpo.data_ptr(), late.data_ptr(), wr.data_ptr(), wi.data_ptr(),
         cn.data_ptr(), n, out.data_ptr(),
-        torch.cuda.current_stream(cap.device).cuda_stream)
-    check_launch("fd_demod", code)
-    LAUNCHES["fd_demod"] += 1
+        torch.cuda.current_stream(samples.device).cuda_stream)
+    check_launch(name, code)
+    LAUNCHES[name] += 1
     return out

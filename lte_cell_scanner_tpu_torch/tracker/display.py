@@ -1,0 +1,36 @@
+"""Plain-text status display for the tracker.
+
+reference: src/display_thread.cpp (per-cell rows of the realtime UI).
+Draws one status frame from LTETracker.status() as loggable text.
+"""
+
+from __future__ import annotations
+
+import math
+
+
+def _fmt(v, spec=".1f", nan="  -  "):
+    if v is None or (isinstance(v, float) and math.isnan(v)):
+        return nan
+    return format(v, spec)
+
+
+def render_status(status: dict) -> str:
+    """One status frame as text."""
+    lines = []
+    lines.append(
+        f"FO: {status['frequency_offset']:+9.1f} Hz   "
+        f"searcher cycle: {_fmt(status['searcher_cycle_time'], '.2f')} s   "
+        f"drops raw/cell: {status['raw_seconds_dropped']}"
+        f"/{status['cell_seconds_dropped']} s")
+    lines.append("CID  P CP  nRB  frame_timing  health  MIBs  fifo^  SNR(dB)")
+    for c in status["cells"]:
+        lines.append(
+            f"{c['n_id_cell']:3d}  {c['n_ports']} "
+            f"{'N' if c['cp_type'] == 'normal' else 'E':2s} "
+            f"{c['n_rb_dl']:4d}  {c['frame_timing']:12.2f}  "
+            f"{c['health'] * 100:5.1f}%  {c['mib_successes']:4d}  "
+            f"{c['fifo_peak']:5d}  {_fmt(c['sync_snr_db'])}")
+    if not status["cells"]:
+        lines.append("  (no cells tracked)")
+    return "\n".join(lines)

@@ -1,0 +1,105 @@
+"""Shared tracker state.
+
+reference: include/LTE-Tracker.h:9-252 — the reference guards these fields
+with per-field mutexes across five thread types; this runtime is a
+single-threaded event loop, so the state is plain Python with the same
+update semantics.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+from typing import Deque, Optional
+
+import numpy as np
+
+from lte_cell_scanner_tpu_torch.constants import CELL_DROP_THRESHOLD
+
+
+@dataclasses.dataclass
+class SymbolPDU:
+    """One OFDM symbol window, as a descriptor into the raw sample stream.
+
+    reference: td_fifo_pdu_t (include/LTE-Tracker.h:19-31). The samples
+    themselves are not copied per cell: ``start`` is the absolute index of
+    the window's first sample in the raw stream, and the engine gathers the
+    128 samples on the device from the stream it uploads once per cycle.
+    """
+
+    slot_num: int
+    sym_num: int
+    late: float               # fractional start-time error (samples)
+    frequency_offset: float   # global FO at capture time
+    frame_timing: float       # cell frame timing at capture time
+    start: int                # absolute stream index of the window
+
+
+@dataclasses.dataclass
+class GlobalState:
+    """Global tracker state (reference: global_thread_data_t)."""
+
+    fc_requested: float
+    fc_programmed: float
+    fs_programmed: float
+    frequency_offset: float = 0.0
+    raw_seconds_dropped: int = 0
+    cell_seconds_dropped: int = 0
+    searcher_cycle_time: float = float("nan")
+
+    def k_factor(self) -> float:
+        return (self.fc_requested - self.frequency_offset) / self.fc_programmed
+
+
+@dataclasses.dataclass
+class TrackedCell:
+    """Per-cell tracking state (reference: tracked_cell_t)."""
+
+    n_id_cell: int
+    n_ports: int
+    cp_type: str
+    n_rb_dl: int
+    phich_duration: str
+    phich_resource: float
+    frame_timing: float          # in the 19200-sample LTE frame clock
+    serial_num: int = 1
+    drop_threshold: float = CELL_DROP_THRESHOLD
+
+    fifo: Deque[SymbolPDU] = dataclasses.field(default_factory=deque)
+    fifo_peak_size: int = 0
+    kill_me: bool = False
+
+    # Health: MIB decode failure counter; +1 per failure when synchronized,
+    # +0.25 while hunting; cell dropped at drop_threshold.
+    mib_decode_failures: float = 0.0
+    mib_decode_successes: int = 0
+
+    # Measurements (rendered by the display)
+    sync_tp: float = float("nan")
+    sync_sp: float = float("nan")
+    sync_np: float = float("nan")
+    sync_np_blank: float = float("nan")
+    sync_tp_av: float = float("nan")
+    sync_sp_av: float = float("nan")
+    sync_np_av: float = float("nan")
+    sync_np_blank_av: float = float("nan")
+    sync_ce: Optional[np.ndarray] = None
+    crs_tp_av: Optional[np.ndarray] = None
+    crs_sp_raw_av: Optional[np.ndarray] = None
+    crs_np_av: Optional[np.ndarray] = None
+    ce: Optional[np.ndarray] = None          # (n_ports, 72) latest CE
+    ac_fd: Optional[np.ndarray] = None       # (12,) freq autocorrelation
+    ac_td: Optional[np.ndarray] = None       # (72,) time autocorrelation
+
+    @property
+    def n_symb_dl(self) -> int:
+        return 7 if self.cp_type == "normal" else 6
+
+    @property
+    def health(self) -> float:
+        """Remaining health fraction 1.0 (good) .. 0.0 (dropped)."""
+        return max(0.0, 1.0 - self.mib_decode_failures / self.drop_threshold)
+
+    def push_pdu(self, pdu: SymbolPDU) -> None:
+        self.fifo.append(pdu)
+        self.fifo_peak_size = max(self.fifo_peak_size, len(self.fifo))

@@ -81,6 +81,8 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "lte_cell_scanner_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    assert {"runtime.py", "batch_runtime.py", "cli.py"} <= {
+        p.name for p in files if p.parent.name == "tracker"}
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
