@@ -4,15 +4,18 @@ NVIDIA card.
 
     python3 chip_smoke.py
 
-Two paths of the port run on the card: the cell search on one capture
-(search/cell_search.py) and the batched tracker engine (tracker/,
-LTETracker). Phases; the script exits non-zero if any fails:
+Three paths of the port run on the card: the cell search on one capture
+(search/cell_search.py), the batched tracker engine (tracker/,
+LTETracker) and the tools (tools/: bench_scan, bench_viterbi,
+bench_decode, bench_tracker, mc_search). Phases; the script exits non-zero
+if any fails:
 
 1. Print the card (nvidia-smi name and power limit) and build the CUDA
    sources from csrc/ (one nvcc each, started together).
 2. Hold each kernel against its plain PyTorch version at the shapes of its
    path: the scan at 80 ms and the full 31-hypothesis grid (plus an
-   extreme +-600 kHz grid), the symbol demod's MIB mode and the Viterbi
+   extreme +-600 kHz grid), in both modes (2x2 and Karatsuba, the latter
+   also against the 2x2 kernel), the symbol demod's MIB mode and the Viterbi
    decoder at the MIB batch of 64 candidates (25,216 windows, 768
    codewords); the symbol demod's stream mode and the Viterbi decoder on
    the inputs of a real tracker cycle at full width (96 cells x 300 ms of
@@ -23,7 +26,15 @@ LTETracker). Phases; the script exits non-zero if any fails:
    the 31-hypothesis grid (normal CP / 50 RB and extended CP / 100 RB),
    checked against the simulator's truth and the same search through the
    plain versions on the CPU; LTETracker on 400 blocks of a simulated cell
-   (cell 271), checked against the same run on the CPU; both CLIs.
+   (cell 271), checked against the same run on the CPU; both CLIs; the
+   tools path: bench_scan in the tea, roll and tea3 layouts on both
+   captures (tea3's peak table must equal tea's), bench_viterbi (bits equal
+   to the host decoder), bench_decode (the synced candidates, replicated
+   to a batch of 64, decode as they do alone),
+   bench_tracker at 8 cells x 0.6 s, and mc_search at the settings of the
+   JAX package's MC_r05.json (ppm 10, seed 0, 50 trials at -10 and -12
+   dB): 50/50 detections and MIB decodes at -10 dB, no false cell, and at
+   least 36/50 at -12 dB.
 4. Time each kernel, its plain version and the end-to-end search with CUDA
    events (3 warm-up runs, median of 20); time the tracker's capacity run
    (96 replicated cells, 300 ms cycles, host clock ending in a sync,
@@ -71,6 +82,12 @@ WARM_CYCLES, TIMED_CYCLES, PROFILED_CYCLES = 2, 5, 1
 # Each path's kernels: a path's run must launch every one of them.
 SEARCH_KERNELS = ("xcorr_fold", "fd_demod", "viterbi")
 TRACKER_KERNELS = ("fd_demod_stream", "viterbi")
+TOOLS_KERNELS = ("xcorr_fold", "xcorr_fold3", "fd_demod", "fd_demod_stream",
+                 "viterbi")
+# The Monte-Carlo floor of the JAX package's MC_r05.json: 50 trials per
+# point, ppm 10, seed 0; there 50/50 at -10 dB and 43/50 at -12 dB.
+MC_SNRS, MC_TRIALS, MC_REF = (-10.0, -12.0), 50, {-10.0: 50, -12.0: 43}
+MC_MIN = {-10.0: 50, -12.0: 36}
 
 failures = []
 
@@ -303,6 +320,77 @@ class CapacityRun:
         self.fed = hi
 
 
+def tools_path(caps) -> dict:
+    """The tools path, each tool called in-process through its ``main``
+    (``measure`` for bench_tracker) as a user would; every tool prints
+    its JSON line. Returns the tools' results by name."""
+    from lte_cell_scanner_tpu_torch.io.itfile import save_it
+    from lte_cell_scanner_tpu_torch.tools import (bench_decode, bench_scan,
+                                                  bench_tracker,
+                                                  bench_viterbi, mc_search)
+
+    out = {}
+    # bench_scan reads a capture from an .it file (the reference's format).
+    cap_dir = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(cap_dir, exist_ok=True)
+    paths = {}
+    for cp, cap in caps.items():
+        paths[cp] = os.path.join(cap_dir, f"capbuf_{cp}.it")
+        save_it(paths[cp], {"capbuf": cap, "fc": np.array([FC])})
+        scans = {layout: bench_scan.main(["--layout", layout, "--iters", "20",
+                                          "--capture", paths[cp]])
+                 for layout in ("tea", "roll", "tea3")}
+        ref = np.array(scans["tea"]["peaks"])
+        for layout in ("roll", "tea3"):
+            got = np.array(scans[layout]["peaks"])
+            check(np.array_equal(got[:, 1:], ref[:, 1:])
+                  and np.allclose(got[:, 0], ref[:, 0], rtol=1e-5, atol=0),
+                  f"bench_scan {cp} CP: the {layout} peak table equals "
+                  f"tea's ({int((ref[:, 0] > 0).sum())} peaks; lag, "
+                  "hypothesis and root exact, power within rtol 1e-5)")
+        out[f"scan_{cp}"] = scans
+    try:
+        vit = bench_viterbi.main(["--batch", "768", "--iters", "20"])
+        check(vit["cuda_bits_equal"] and vit["plain_bits_equal"],
+              "bench_viterbi: both variants' bits equal the host decoder's "
+              "on 768 codewords")
+        out["viterbi"] = vit
+    except SystemExit as e:
+        check(False, f"bench_viterbi: {e}")
+    dec = bench_decode.main(["--iters", "10", "--capture", paths["normal"]])
+    check(dec["b_candidates"] == 64 and dec["synced_decoded"] >= 1
+          and dec["replicas_agree"] and dec["cells"] == [271],
+          f"bench_decode: {dec['synced_decoded']} of {dec['n_synced']} "
+          f"synced candidates decode their MIB, {dec['mib_decoded']} of the "
+          f"batch of {dec['b_candidates']}, every replica as its original: "
+          f"{dec['replicas_agree']}, cells {dec['cells']} (want >= 1, True, "
+          "[271])")
+    out["decode"] = dec
+    trk = bench_tracker.measure(cells=8, seconds=0.6)
+    print(json.dumps(trk))
+    check(trk["min_health"] == 1.0 and trk["mib_decodes"] > 0,
+          f"bench_tracker 8 cells x 0.6 s: {trk['mib_decodes']} MIB "
+          f"decodes, min health {trk['min_health']} (want > 0, 1.0)")
+    out["tracker"] = trk
+    art = mc_search.main(["--snr-sweep=" + ",".join(map(str, MC_SNRS)),
+                          "--trials", str(MC_TRIALS), "--ppm", "10",
+                          "--seed", "0"])
+    for pt in art["points"]:
+        snr = pt["snr_db"]
+        print(f"mc_search {snr:+.0f} dB: detections {pt['detections']}/"
+              f"{pt['trials']}, MIB {pt['mib_successes']}/{pt['trials']}, "
+              f"false cells {pt['false_cells']}, freq err median "
+              f"{pt['freq_err_med_hz']} Hz (MC_r05.json: {MC_REF[snr]}/50)")
+        ok = min(pt["detections"], pt["mib_successes"]) >= MC_MIN[snr]
+        if snr == -10.0:
+            ok = ok and pt["false_cells"] == 0
+        check(ok, f"mc_search {snr:+.0f} dB: at least {MC_MIN[snr]}/50 "
+              "detections and MIB decodes"
+              + (", no false cell" if snr == -10.0 else ""))
+    out["mc"] = art
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -366,7 +454,16 @@ def main() -> int:
         return (plan, torch.from_numpy(plan.tpl).to(dev),
                 torch.from_numpy(plan.starts).to(dev))
 
-    scan_err = {}
+    def close(got, want, what):
+        err = (got - want).abs()
+        tol = 1e-5 * want.abs() + 1e-6 * want.abs().max()
+        check(bool((err <= tol).all()),
+              f"{what}: max abs err {float(err.max()):.3e} (tolerance rtol "
+              f"1e-5 + atol 1e-6 * max {float(want.abs().max()):.3e})")
+        return float(err.max())
+
+    cap3 = xcorr_torch.karatsuba_planes(cap2)
+    scan_err, scan3_err = {}, {}
     for label, fset in (("31-hyp", fset31),
                         ("241-hyp", np.arange(-120, 121) * 5e3)):
         plan, tpl, starts = scan_inputs(fset)
@@ -375,17 +472,28 @@ def main() -> int:
                                             ).view(len(fset), 3, -1
                                                    ).permute(1, 2, 0)
         torch.cuda.synchronize()
-        err = (got - want).abs()
-        tol = 1e-5 * want.abs() + 1e-6 * want.abs().max()
-        scan_err[label] = float(err.max())
-        check(bool((err <= tol).all()),
-              f"xcorr_fold {label} n_f={len(fset)} n_comb={plan.n_comb_xc}: "
-              f"max abs err {float(err.max()):.3e} (tolerance rtol 1e-5 + "
-              f"atol 1e-6 * max {float(want.abs().max()):.3e})")
+        scan_err[label] = close(got, want, f"xcorr_fold {label} n_f="
+                                f"{len(fset)} n_comb={plan.n_comb_xc}")
+        # The Karatsuba mode: against its plain version, and against the
+        # 2x2 kernel at the JAX package's tea3-vs-roll tolerance (the
+        # same bound: tests/test_xcorr_pallas.py).
+        tpl3 = torch.from_numpy(xcorr_torch.scan_plan(
+            n_cap, fset, FC, FC, 1.92e6, layout="tea3").tpl).to(dev)
+        got3 = xcorr_torch.xcorr_fold3(cap3, tpl3, starts, plan.n_comb_xc)
+        want3 = xcorr_torch.xcorr_fold3_plain(cap3, tpl3, starts,
+                                              plan.n_comb_xc
+                                              ).view(len(fset), 3, -1
+                                                     ).permute(1, 2, 0)
+        torch.cuda.synchronize()
+        scan3_err[label] = close(got3, want3, f"xcorr_fold3 {label}")
+        close(got3, got, f"xcorr_fold3 {label} vs the xcorr_fold kernel")
+        del got, want, got3, want3
 
     # The MIB batch of 64 candidates: the capture's detected cell at 64
     # timings and frequencies around it.
     plan31, tpl31, starts31 = scan_inputs(fset31)
+    tpl31_3 = torch.from_numpy(xcorr_torch.scan_plan(
+        n_cap, fset31, FC, FC, 1.92e6, layout="tea3").tpl).to(dev)
     packed, single, _ = xcorr_torch.xcorr_core(cap2, plan31, 2)
     peaks = peaks_to_cells(peak_search_device(
         packed, single, r_th1_normalized(plan31.n_comb_xc, 2), 2).cpu().numpy(),
@@ -490,6 +598,10 @@ def main() -> int:
 
     check(refuses(lambda: xcorr_torch.xcorr_fold(
         cap2.double(), tpl31, starts31, plan31.n_comb_xc))
+          and refuses(lambda: xcorr_torch.xcorr_fold3(
+              cap2, tpl31_3, starts31, plan31.n_comb_xc))
+          and refuses(lambda: xcorr_torch.xcorr_fold3(
+              cap3, tpl31, starts31, plan31.n_comb_xc))
           and refuses(lambda: fd_demod(cap_ri, demod_args[0][::2],
                                        *demod_args[1:]))
           and refuses(lambda: viterbi.viterbi_tl(llr_tl[:, :6]))
@@ -566,6 +678,18 @@ def main() -> int:
           f"{[round(c['frame_timing'], 4) for c in st['cells']]}, CPU "
           f"{[round(c['frame_timing'], 4) for c in rs['cells']]})")
 
+    # The tools path.
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    tools = tools_path(caps)
+    torch.cuda.synchronize()
+    tools_launches = dict(kernels.LAUNCHES)
+    print(f"tools path launches: {json.dumps(tools_launches)} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    for name in TOOLS_KERNELS:
+        check(tools_launches[name] > 0, f"{name} launched "
+              f"{tools_launches[name]} time(s) on the tools path")
+
     # ---- 4. timing.
     t_scan = cuda_ms(lambda: xcorr_torch.xcorr_fold(cap2, tpl31, starts31,
                                                      plan31.n_comb_xc))
@@ -577,8 +701,10 @@ def main() -> int:
     weight = torch.cat([torch.stack([w_re, -w_im], 1),
                         torch.stack([w_im, w_re], 1)], 0)
     t_conv = cuda_ms(lambda: torch.nn.functional.conv1d(cap2[None], weight))
-    print(f"scan yardstick (partial: F.conv1d correlation only, no fold): "
-          f"{t_conv:.4f} ms")
+    t_scan3 = cuda_ms(lambda: xcorr_torch.xcorr_fold3(
+        cap3, tpl31_3, starts31, plan31.n_comb_xc))
+    t_scan3_plain = cuda_ms(lambda: xcorr_torch.xcorr_fold3_plain(
+        cap3, tpl31_3, starts31, plan31.n_comb_xc))
     t_fd = cuda_ms(lambda: fd_demod(cap_ri, *demod_args))
     t_fd_plain = cuda_ms(lambda: fd_demod_plain(cap_ri, *demod_args))
     t_vit = cuda_ms(lambda: viterbi.viterbi_tl(llr_tl))
@@ -646,6 +772,11 @@ def main() -> int:
     scan_b = bound(n_ch * 9600 * n_comb * (137 * 8 + 3),
                    4 * (2 * n_cap + n_ch * 2 * 137 + n_f * n_comb
                         + n_ch * 9600))
+    # Karatsuba: three FMAs per tap, then re = k1 - k2, im = k3 - k1 - k2
+    # and |xc|^2 accumulated (7 flops); the capture sum a+b is an input.
+    scan3_b = bound(n_ch * 9600 * n_comb * (137 * 6 + 7),
+                    4 * (3 * n_cap + n_ch * 3 * 137 + n_f * n_comb
+                         + n_ch * 9600))
     fd_b = bound(n_win * (128 * 72 * 8 + 128 * 8 + 72 * 10),
                  8 * n_cap + n_win * 4 * 4 + 4 * (2 * 128 * 72 + 72)
                  + n_win * 72 * 8)
@@ -671,7 +802,14 @@ def main() -> int:
                       "lte_cell_scanner_tpu/ops/xcorr_pallas.py:51 (K2)",
              launches=launches["xcorr_fold"], max_abs_err=scan_err["31-hyp"],
              ms=t_scan, plain_ms=t_scan_plain, bound_ms=scan_b[0],
-             bound_by=scan_b[1], library_ms=None),
+             bound_by=scan_b[1], library_ms=t_conv),
+        dict(name="xcorr_fold3", route="cuda",
+             source="lte_cell_scanner_tpu_torch/csrc/xcorr_fold.cu",
+             replaces="lte_cell_scanner_tpu/ops/xcorr_pallas.py:174 (K3)",
+             launches=tools_launches["xcorr_fold3"],
+             max_abs_err=scan3_err["31-hyp"], ms=t_scan3,
+             plain_ms=t_scan3_plain, bound_ms=scan3_b[0],
+             bound_by=scan3_b[1], library_ms=t_conv),
         dict(name="fd_demod", route="cuda",
              source="lte_cell_scanner_tpu_torch/csrc/fd_demod.cu",
              replaces="lte_cell_scanner_tpu/ops/fd_demod_pallas.py:58 (K4)",

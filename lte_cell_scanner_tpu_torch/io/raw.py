@@ -1,4 +1,4 @@
-"""Raw rtl_sdr sample format: interleaved uint8 I/Q, normalized (x-127)/128.
+"""Raw rtl_sdr captures: interleaved uint8 I/Q, normalized (x-127)/128.
 
 reference: src/itpp_ext.cpp:176-217 (rtl_sdr_to_cvec) and the byte->complex
 conversion in src/capbuf.cpp:172-181.
@@ -33,3 +33,12 @@ def iq_to_bytes(iq: np.ndarray) -> np.ndarray:
     out[0::2] = i.astype(np.uint8)
     out[1::2] = q.astype(np.uint8)
     return out
+
+
+def load_rtl_sdr(path: str, drop_seconds: float = 0.0,
+                 fs: float = 1.92e6) -> np.ndarray:
+    """Load a raw rtl_sdr capture file, optionally dropping leading seconds."""
+    raw = np.fromfile(path, dtype=np.uint8)
+    iq = bytes_to_iq(raw)
+    n_drop = int(round(drop_seconds * fs))
+    return iq[n_drop:]

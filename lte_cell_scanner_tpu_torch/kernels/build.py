@@ -1,7 +1,8 @@
 """Build the CUDA sources under ``csrc/`` with nvcc and bind them with ctypes.
 
 Each ``csrc/<source>.cu`` exports one ``extern "C"`` launcher per kernel
-(``fd_demod.cu`` two: the MIB and the stream mode of one kernel body) that
+(``xcorr_fold.cu`` two: the 2x2 and the Karatsuba mode of one kernel body;
+``fd_demod.cu`` two: the MIB and the stream mode) that
 takes raw device pointers and a CUDA stream and returns
 ``cudaGetLastError()``. A source is compiled for Hopper (``sm_90a``) into
 a shared library under ``build/kernels/`` at the root of the checkout,
@@ -32,11 +33,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_XCORR_ARGS = (_P, _I, _P, _P, _I, _I, _P, _P)
 _FD_DEMOD_ARGS = (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P)
 # Source, launcher name and argument types of each kernel's C interface.
 _SIGNATURES = {
-    "xcorr_fold": ("xcorr_fold", "xcorr_fold_launch",
-                   (_P, _I, _P, _P, _I, _I, _P, _P)),
+    "xcorr_fold": ("xcorr_fold", "xcorr_fold_launch", _XCORR_ARGS),
+    "xcorr_fold3": ("xcorr_fold", "xcorr_fold3_launch", _XCORR_ARGS),
     "fd_demod": ("fd_demod", "fd_demod_launch", _FD_DEMOD_ARGS),
     "fd_demod_stream": ("fd_demod", "fd_demod_stream_launch", _FD_DEMOD_ARGS),
     "viterbi": ("viterbi", "viterbi_launch", (_P, _I, _I, _P, _P, _P, _P)),

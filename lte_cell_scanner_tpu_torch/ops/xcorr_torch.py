@@ -1,6 +1,6 @@
 """PSS hypothesis scan on the device: correlation bank + k_factor fold
-(the ``xcorr_fold`` CUDA kernel), delay spread, signal power and the
-frequency collapse.
+(the ``xcorr_fold`` and ``xcorr_fold3`` CUDA kernels), delay spread,
+signal power and the frequency collapse.
 
 Counterpart of lte_cell_scanner_tpu/ops/xcorr_pallas.py
 (``xcorr_core_pallas``) and ops/xcorr_jax.py (``_delay_spread``,
@@ -8,6 +8,14 @@ Counterpart of lte_cell_scanner_tpu/ops/xcorr_pallas.py
 ``(packed (7, 9600), single (3, 9600, n_f), inc)`` contract: packed rows
 0-2 are the collapsed peak powers, rows 3-5 the argmax hypothesis indices
 (as floats), row 6 the folded signal power.
+
+Layouts (:func:`scan_plan`): "tea" and "roll" name the JAX package's two
+2x2 real-block kernels (K1, K2); one CUDA kernel, ``xcorr_fold``, serves
+both. "tea3" is the Karatsuba kernel (K3): three real products per tap,
+``xcorr_fold3``. Precision "bf16" reproduces the JAX bf16 mode's rounding
+points (the template bank, the window values and, for tea3, the sum
+re+im, each rounded to bfloat16) and then runs the same f32 kernels: a
+numerics option, not a tensor-core kernel.
 
 All k_factor-dependent index arithmetic (template shifts, fold starts) is
 float64 host planning in :func:`scan_plan`; the device works in float32.
@@ -29,19 +37,37 @@ from lte_cell_scanner_tpu_torch.ops.xcorr import (fold_start_indices,
                                                   n_comb_xc_for,
                                                   shifted_templates)
 
+LAYOUTS = ("tea", "roll", "tea3")
+PRECISIONS = ("f32", "bf16")
+
 
 @dataclasses.dataclass
 class ScanPlan:
     """Host-planned inputs of the scan for one capture length and grid."""
 
-    tpl: np.ndarray       # (n_f, 3, 2, 137) f32 re/im of the templates
+    tpl: np.ndarray       # (n_f, 3, P, 137) f32 template planes: re, im
+                          # (P = 2) or re, im, re+im (P = 3, layout tea3)
     starts: np.ndarray    # (n_f, n_comb_xc) i32 fold start lags
     n_comb_xc: int
     n_comb_sp: int
+    layout: str = "tea"
+    precision: str = "f32"
+
+
+def round_bf16(x):
+    """Round float32 values to the nearest bfloat16 (ties to even), kept
+    in float32: a numpy array or a tensor, returned as the same kind."""
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    return x.to(torch.bfloat16).float()
 
 
 def scan_plan(n_cap: int, f_search_set, fc_requested: float,
-              fc_programmed: float, fs_programmed: float) -> ScanPlan:
+              fc_programmed: float, fs_programmed: float,
+              layout: str = "tea", precision: str = "f32") -> ScanPlan:
+    if layout not in LAYOUTS or precision not in PRECISIONS:
+        raise ValueError(f"scan_plan: layout {layout!r} not in {LAYOUTS} or "
+                         f"precision {precision!r} not in {PRECISIONS}")
     f_search_set = np.asarray(f_search_set, dtype=np.float64)
     n_comb_xc = n_comb_xc_for(n_cap - (PSS_TD_LEN - 1), f_search_set,
                               fc_requested, fc_programmed, fs_programmed)
@@ -49,11 +75,27 @@ def scan_plan(n_cap: int, f_search_set, fc_requested: float,
                             fs_programmed)                   # (n_f, 3, 137)
     starts = fold_start_indices(f_search_set, n_comb_xc, fc_requested,
                                 fc_programmed, fs_programmed)
-    return ScanPlan(
-        tpl=np.stack([tpl.real, tpl.imag], axis=2).astype(np.float32),
-        starts=starts.astype(np.int32),
-        n_comb_xc=int(n_comb_xc),
-        n_comb_sp=int(n_comb_sp_for(n_cap)))
+    planes = [tpl.real, tpl.imag]
+    if layout == "tea3":
+        # The Karatsuba bank's third plane, summed in float64 as the JAX
+        # package's _tea_bank3 does, then rounded once.
+        planes.append(tpl.real + tpl.imag)
+    bank = np.stack(planes, axis=2).astype(np.float32)
+    if precision == "bf16":
+        bank = round_bf16(bank)
+    return ScanPlan(tpl=bank, starts=starts.astype(np.int32),
+                    n_comb_xc=int(n_comb_xc),
+                    n_comb_sp=int(n_comb_sp_for(n_cap)),
+                    layout=layout, precision=precision)
+
+
+def karatsuba_planes(cap2: torch.Tensor, precision: str = "f32"
+                     ) -> torch.Tensor:
+    """(2, n_cap) re/im -> (3, n_cap) re, im, re+im: the capture planes of
+    ``xcorr_fold3``. In bf16 each plane is rounded, the sum after the add
+    of the unrounded f32 values (the JAX tea3 kernel's rounding points)."""
+    cap3 = torch.cat([cap2, (cap2[0] + cap2[1])[None]])
+    return round_bf16(cap3) if precision == "bf16" else cap3
 
 
 def xcorr_fold_plain(cap2: torch.Tensor, tpl: torch.Tensor,
@@ -79,15 +121,22 @@ def _fold_plain_chunk(cap2, tpl, starts, n_comb_xc):
     weight = torch.cat([torch.stack([w_re, -w_im], 1),
                         torch.stack([w_im, w_re], 1)], 0)
     xc = F.conv1d(cap2[None], weight)[0]                  # (2*n_ch, n_lags)
-    mag = (xc[:n_ch] ** 2 + xc[n_ch:] ** 2).view(n_f, 3, -1)
-    lags = torch.arange(HALF_FRAME, device=cap2.device)
+    return _fold(xc[:n_ch] ** 2 + xc[n_ch:] ** 2, starts, n_comb_xc)
+
+
+def _fold(mag, starts, n_comb_xc):
+    """(n_ch, n_lags) |xc|^2 -> (n_ch, 9600): the hypothesis-aligned
+    slices added in ascending fold order, over n_comb_xc."""
+    n_f = starts.shape[0]
+    mag = mag.view(n_f, 3, -1)
+    lags = torch.arange(HALF_FRAME, device=mag.device)
     acc = None
     for m in range(n_comb_xc):
         idx = (starts[:, m, None].long() + lags)[:, None, :].expand(
             n_f, 3, HALF_FRAME)
         part = torch.gather(mag, 2, idx)
         acc = part if acc is None else acc + part
-    return (acc / n_comb_xc).reshape(n_ch, HALF_FRAME)
+    return (acc / n_comb_xc).reshape(3 * n_f, HALF_FRAME)
 
 
 def xcorr_fold(cap2: torch.Tensor, tpl: torch.Tensor, starts: torch.Tensor,
@@ -100,29 +149,73 @@ def xcorr_fold(cap2: torch.Tensor, tpl: torch.Tensor, starts: torch.Tensor,
     ``xc_incoherent_single`` of the reference. A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel.
     """
+    return _fold_call("xcorr_fold", 2, cap2, tpl, starts, n_comb_xc)
+
+
+def _fold_call(name, n_planes, cap, tpl, starts, n_comb_xc):
+    """Run kernel ``name`` (``n_planes`` capture and template planes), or
+    its plain version for a CPU tensor; returns (3, 9600, n_f)."""
     n_f = tpl.shape[0]
-    if cap2.device.type == "cpu":
-        fold = xcorr_fold_plain(cap2, tpl, starts, n_comb_xc)
+    if cap.device.type == "cpu":
+        plain = xcorr_fold_plain if n_planes == 2 else xcorr_fold3_plain
+        fold = plain(cap, tpl, starts, n_comb_xc)
     else:
-        _check(cap2, torch.float32, 2, "cap2")
+        _check(cap, torch.float32, 2, "cap")
         _check(tpl, torch.float32, 4, "tpl")
         _check(starts, torch.int32, 2, "starts")
-        if cap2.shape[0] != 2 or tpl.shape[1:] != (3, 2, PSS_TD_LEN) \
+        if cap.shape[0] != n_planes \
+                or tpl.shape[1:] != (3, n_planes, PSS_TD_LEN) \
                 or starts.shape != (n_f, n_comb_xc):
-            raise ValueError("xcorr_fold: bad shapes "
-                             f"{tuple(cap2.shape)} {tuple(tpl.shape)} "
-                             f"{tuple(starts.shape)}")
-        if not (cap2.device == tpl.device == starts.device):
-            raise ValueError("xcorr_fold: tensors on different devices")
+            raise ValueError(f"{name}: bad shapes {tuple(cap.shape)} "
+                             f"{tuple(tpl.shape)} {tuple(starts.shape)}")
+        if not (cap.device == tpl.device == starts.device):
+            raise ValueError(f"{name}: tensors on different devices")
         fold = torch.empty((3 * n_f, HALF_FRAME), dtype=torch.float32,
-                           device=cap2.device)
-        code = launcher("xcorr_fold")(
-            cap2.data_ptr(), cap2.shape[1], tpl.data_ptr(),
-            starts.data_ptr(), n_f, n_comb_xc, fold.data_ptr(),
-            torch.cuda.current_stream(cap2.device).cuda_stream)
-        check_launch("xcorr_fold", code)
-        LAUNCHES["xcorr_fold"] += 1
+                           device=cap.device)
+        code = launcher(name)(
+            cap.data_ptr(), cap.shape[1], tpl.data_ptr(), starts.data_ptr(),
+            n_f, n_comb_xc, fold.data_ptr(),
+            torch.cuda.current_stream(cap.device).cuda_stream)
+        check_launch(name, code)
+        LAUNCHES[name] += 1
     return fold.view(n_f, 3, HALF_FRAME).permute(1, 2, 0)
+
+
+def xcorr_fold3_plain(cap3: torch.Tensor, tpl: torch.Tensor,
+                      starts: torch.Tensor, n_comb_xc: int,
+                      chunk: int = 32) -> torch.Tensor:
+    """Plain PyTorch version of the ``xcorr_fold3`` kernel: (n_f*3, 9600).
+
+    Three real correlations per channel, k1 = tr * a, k2 = ti * b,
+    k3 = (tr+ti) * (a+b), recombined as re = k1 - k2, im = (k3 - k1) - k2;
+    then the fold of :func:`xcorr_fold_plain`."""
+    return torch.cat([
+        _fold3_plain_chunk(cap3, tpl[i:i + chunk], starts[i:i + chunk],
+                           n_comb_xc)
+        for i in range(0, tpl.shape[0], chunk)])
+
+
+def _fold3_plain_chunk(cap3, tpl, starts, n_comb_xc):
+    n_f = tpl.shape[0]
+    w = tpl.reshape(3 * n_f, 3, PSS_TD_LEN)
+    k1, k2, k3 = (F.conv1d(cap3[None, p:p + 1], w[:, p:p + 1])[0]
+                  for p in range(3))                      # (n_ch, n_lags)
+    re = k1 - k2
+    im = (k3 - k1) - k2
+    return _fold(re ** 2 + im ** 2, starts, n_comb_xc)
+
+
+def xcorr_fold3(cap3: torch.Tensor, tpl: torch.Tensor, starts: torch.Tensor,
+                n_comb_xc: int) -> torch.Tensor:
+    """Fused Karatsuba correlation + incoherent fold (layout "tea3").
+
+    cap3 (3, n_cap) f32 planes re, im, re+im (:func:`karatsuba_planes`);
+    tpl (n_f, 3, 3, 137) f32 planes re, im, re+im (``scan_plan(...,
+    layout="tea3").tpl``); starts (n_f, n_comb_xc) i32 with every fold
+    window inside the capture. Returns single (3, 9600, n_f) f32. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel.
+    """
+    return _fold_call("xcorr_fold3", 3, cap3, tpl, starts, n_comb_xc)
 
 
 def _check(t: torch.Tensor, dtype, ndim: int, name: str) -> None:
@@ -170,12 +263,20 @@ def _sp_est_from_pw(pw: torch.Tensor, n_comb_sp: int) -> torch.Tensor:
 def xcorr_core(cap2: torch.Tensor, plan: ScanPlan, ds_comb_arm: int):
     """Full scan of one capture. cap2 (2, n_cap) f32 on the device.
 
+    ``plan.layout`` picks the kernel ("tea"/"roll": ``xcorr_fold``,
+    "tea3": ``xcorr_fold3``); ``plan.precision`` "bf16" rounds the
+    correlation's inputs (the signal power uses the f32 capture).
     Returns (packed (7, 9600), single (3, 9600, n_f), inc (3, 9600, n_f)).
     """
     dev = cap2.device
-    single = xcorr_fold(cap2, torch.from_numpy(plan.tpl).to(dev),
-                        torch.from_numpy(plan.starts).to(dev),
-                        plan.n_comb_xc)
+    tpl = torch.from_numpy(plan.tpl).to(dev)
+    starts = torch.from_numpy(plan.starts).to(dev)
+    if plan.layout == "tea3":
+        single = xcorr_fold3(karatsuba_planes(cap2, plan.precision), tpl,
+                             starts, plan.n_comb_xc)
+    else:
+        cap_x = round_bf16(cap2) if plan.precision == "bf16" else cap2
+        single = xcorr_fold(cap_x, tpl, starts, plan.n_comb_xc)
     inc = _delay_spread(single, ds_comb_arm)
     sp_inc = _sp_est_from_pw(cap2[0] ** 2 + cap2[1] ** 2, plan.n_comb_sp)
     pow_ = inc.amax(dim=2)

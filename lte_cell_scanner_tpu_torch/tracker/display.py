@@ -8,11 +8,34 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
+
 
 def _fmt(v, spec=".1f", nan="  -  "):
     if v is None or (isinstance(v, float) and math.isnan(v)):
         return nan
     return format(v, spec)
+
+
+def ascii_plot(values: np.ndarray, width: int = 60, height: int = 8,
+               label: str = "") -> str:
+    """Tiny ASCII plot engine (reference: display_thread.cpp:245-370)."""
+    values = np.asarray(values, dtype=float)
+    values = values[np.isfinite(values)]
+    if values.size == 0:
+        return f"{label}: (no data)"
+    if len(values) > width:
+        idx = np.linspace(0, len(values) - 1, width).astype(int)
+        values = values[idx]
+    lo, hi = float(values.min()), float(values.max())
+    span = (hi - lo) or 1.0
+    rows = [[" "] * len(values) for _ in range(height)]
+    for x, v in enumerate(values):
+        y = int((v - lo) / span * (height - 1))
+        rows[height - 1 - y][x] = "*"
+    out = [f"{label}  [{lo:.3g} .. {hi:.3g}]"]
+    out += ["|" + "".join(r) for r in rows]
+    return "\n".join(out)
 
 
 def render_status(status: dict) -> str:

@@ -1,7 +1,7 @@
 """Host-side DSP helpers (NumPy, float64) that the port's planners use.
 
 Conventions follow the reference (include/dsp.h): ``idft`` is unitary
-scaled, ``interp1`` extrapolates linearly like MATLAB, ``wrap`` folds into
+scaled, ``fshift`` multiplies by exp(+j*2*pi*f*t/fs), ``interp1`` extrapolates linearly like MATLAB, ``wrap`` folds into
 a half-open interval like the WRAP macro of include/macros.h.
 """
 
@@ -16,6 +16,19 @@ def idft(x: np.ndarray, axis: int = -1) -> np.ndarray:
     x = np.asarray(x)
     n = x.shape[axis]
     return np.fft.ifft(x, axis=axis) * np.sqrt(n)
+
+
+def fshift(x: np.ndarray, f: float, fs: float) -> np.ndarray:
+    """Shift ``x`` up in frequency by ``f`` Hz at sample rate ``fs``:
+    x * exp(+j*2*pi*f*t/fs), t from 0 (reference: include/dsp.h:40-53)."""
+    x = np.asarray(x)
+    t = np.arange(x.shape[-1], dtype=np.float64)
+    k = np.pi * f / (fs / 2.0)
+    return x * np.exp(1j * k * t)
+
+
+def db10(x):
+    return 10.0 * np.log10(x)
 
 
 def udb10(x):

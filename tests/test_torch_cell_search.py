@@ -83,10 +83,15 @@ def test_port_imports_no_jax():
     assert len(files) > 20
     assert {"runtime.py", "batch_runtime.py", "cli.py"} <= {
         p.name for p in files if p.parent.name == "tracker"}
+    assert {"bench_scan.py", "bench_decode.py", "bench_viterbi.py",
+            "bench_tracker.py", "mc_search.py", "rtl_sdr_check.py",
+            "noise_bias.py", "pss_ambiguity.py"} <= {
+        p.name for p in files if p.parent.name == "tools"}
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "lte_cell_scanner_tpu"), \
+            assert top not in ("jax", "jaxlib", "ml_dtypes",
+                               "lte_cell_scanner_tpu"), \
                 f"{path.relative_to(REPO)} imports {name}"
 
 
