@@ -7,7 +7,7 @@ NVIDIA card.
 Three paths of the port run on the card: the cell search on one capture
 (search/cell_search.py), the batched tracker engine (tracker/,
 LTETracker) and the tools (tools/: bench_scan, bench_viterbi,
-bench_decode, bench_tracker, mc_search). Phases; the script exits non-zero
+bench_decode, bench_demod, bench_tracker, mc_search). Phases; the script exits non-zero
 if any fails:
 
 1. Print the card (nvidia-smi name and power limit) and build the CUDA
@@ -20,7 +20,9 @@ if any fails:
    codewords); the symbol demod's stream mode and the Viterbi decoder on
    the inputs of a real tracker cycle at full width (96 cells x 300 ms of
    signal: 403,200 windows, ~720 codewords), recorded from the capacity
-   engine's warm-up cycles.
+   engine's warm-up cycles; both demod modes at edge window starts (0,
+   every start mod 128, the last row, past the end of the samples) and the
+   Viterbi decoder on tie-heavy integer LLRs (bits identical).
 3. Drive each path with the kernels' launch counts set to 0 just before
    and read just after: cell_search on simulator captures at 739 MHz with
    the 31-hypothesis grid (normal CP / 50 RB and extended CP / 100 RB),
@@ -30,13 +32,17 @@ if any fails:
    tools path: bench_scan in the tea, roll and tea3 layouts on both
    captures (tea3's peak table must equal tea's), bench_viterbi (bits equal
    to the host decoder), bench_decode (the synced candidates, replicated
-   to a batch of 64, decode as they do alone),
+   to a batch of 64, decode as they do alone), bench_demod at the tracker
+   path's median stream launch size, 1,050 and 403,200 windows,
    bench_tracker at 8 cells x 0.6 s, and mc_search at the settings of the
    JAX package's MC_r05.json (ppm 10, seed 0, 50 trials at -10 and -12
    dB): 50/50 detections and MIB decodes at -10 dB, no false cell, and at
    least 36/50 at -12 dB.
-4. Time each kernel, its plain version and the end-to-end search with CUDA
-   events (3 warm-up runs, median of 20); time the tracker's capacity run
+4. Time each kernel, its plain version and its library yardstick (K1:
+   F.conv1d; K4: torch.fft.fft and a dense f32 matmul, both partial) with
+   CUDA events around single calls (3 warm-up calls, median of 20), and
+   the end-to-end
+   search on the host clock (median of 20); time the tracker's capacity run
    (96 replicated cells, 300 ms cycles, host clock ending in a sync,
    median cycle), its stage split and its device-busy share.
 
@@ -88,6 +94,11 @@ TOOLS_KERNELS = ("xcorr_fold", "xcorr_fold3", "fd_demod", "fd_demod_stream",
 # point, ppm 10, seed 0; there 50/50 at -10 dB and 43/50 at -12 dB.
 MC_SNRS, MC_TRIALS, MC_REF = (-10.0, -12.0), 50, {-10.0: 50, -12.0: 43}
 MC_MIN = {-10.0: 50, -12.0: 36}
+
+# Flops of csrc/fd_demod.cu's 128-point FFT per window: 8 in-register
+# DFT_16 (188 flops each: 16 complex adds, 6 twiddle products, two DFT_8
+# of 60), 8 x 15 W128 twiddle products (6 flops), 16 DFT_8.
+FFT128_FLOPS = 8 * 188 + 8 * 15 * 6 + 16 * 60
 
 failures = []
 
@@ -217,6 +228,34 @@ def device_busy(fn, wall_ms: float, warm: bool = True) -> None:
               f"{e.self_device_time_total / 1e3:.3f} ms")
 
 
+def edge_starts(n_samples: int, rng) -> np.ndarray:
+    """Symbol-demod window starts at the edges: 0, every b = start mod 128
+    (random rows), the last row and windows running past the end of the
+    samples (their rows clamp and read the pad)."""
+    n_rows = -(-n_samples // 128)
+    every_b = 128 * rng.integers(0, n_rows - 1, 128) + np.arange(128)
+    last = [n_samples - 128, n_samples - 64, n_samples - 1,
+            128 * (n_rows - 1), n_samples + 3, n_samples + 200]
+    return np.concatenate([[0], every_b, last]).astype(np.int32)
+
+
+def fd_yardsticks(n: int):
+    """K4's partial yardsticks at N windows, in ms: one torch.fft.fft over
+    (N, 128) complex64 (cuFFT) and the dense real-block f32 product
+    (N, 256) @ (256, 144). Timed here only; the port never calls them."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(n, 128, dtype=torch.complex64, device="cuda",
+                    generator=gen)
+    t_fft = cuda_ms(lambda: torch.fft.fft(x))
+    del x
+    a = torch.randn(n, 256, device="cuda", generator=gen)
+    w = torch.randn(256, 144, device="cuda", generator=gen)
+    t_mm = cuda_ms(lambda: a @ w)
+    return t_fft, t_mm
+
+
 def bound(flops: float, nbytes: float):
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     t_mem = nbytes / PEAK_BYTES * 1e3
@@ -320,13 +359,13 @@ class CapacityRun:
         self.fed = hi
 
 
-def tools_path(caps) -> dict:
+def tools_path(caps, demod_sizes) -> dict:
     """The tools path, each tool called in-process through its ``main``
     (``measure`` for bench_tracker) as a user would; every tool prints
     its JSON line. Returns the tools' results by name."""
     from lte_cell_scanner_tpu_torch.io.itfile import save_it
-    from lte_cell_scanner_tpu_torch.tools import (bench_decode, bench_scan,
-                                                  bench_tracker,
+    from lte_cell_scanner_tpu_torch.tools import (bench_decode, bench_demod,
+                                                  bench_scan, bench_tracker,
                                                   bench_viterbi, mc_search)
 
     out = {}
@@ -366,6 +405,13 @@ def tools_path(caps) -> dict:
           f"{dec['replicas_agree']}, cells {dec['cells']} (want >= 1, True, "
           "[271])")
     out["decode"] = dec
+    try:
+        out["demod"] = bench_demod.main([
+            "--windows", ",".join(map(str, demod_sizes)), "--iters", "20"])
+        check(True, "bench_demod: the stream kernel within 1e-4 x max of "
+              f"its plain version at {demod_sizes} windows")
+    except SystemExit as e:
+        check(False, f"bench_demod: {e}")
     trk = bench_tracker.measure(cells=8, seconds=0.6)
     print(json.dumps(trk))
     check(trk["min_health"] == 1.0 and trk["mib_decodes"] > 0,
@@ -405,7 +451,8 @@ def main() -> int:
         from lte_cell_scanner_tpu_torch.models import viterbi
         from lte_cell_scanner_tpu_torch.ops import mib_torch, xcorr_torch
         from lte_cell_scanner_tpu_torch.ops.fd_demod import (
-            fd_demod, fd_demod_plain, fd_demod_stream, fd_demod_stream_plain)
+            MIB_DFT, SubcarrierDFT, fd_demod, fd_demod_plain, fd_demod_stream,
+            fd_demod_stream_plain)
         from lte_cell_scanner_tpu_torch.ops.sync_torch import sss_foe_batch
         from lte_cell_scanner_tpu_torch.ops.peak_torch import (
             peak_search_device, peaks_to_cells, r_th1_normalized)
@@ -588,6 +635,36 @@ def main() -> int:
           "codeword(s) differ from the plain version (bits must be "
           "identical)")
 
+    # Edge starts in both modes of the symbol demod, and tie-heavy LLRs
+    # for the Viterbi decoder, on synthetic inputs made from a seed.
+    rng = np.random.default_rng(0)
+    for mode, samples in (("fd_demod", cap_ri), ("fd_demod_stream",
+                                                  str_args[0])):
+        idx = torch.from_numpy(edge_starts(samples.shape[0], rng)).to(dev)
+        n_e = idx.shape[0]
+        prm = tuple(torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+            rng.uniform(-0.05, 0.05, n_e), rng.uniform(-np.pi, np.pi, n_e),
+            rng.uniform(-2, 2, n_e)))
+        if mode == "fd_demod":
+            got = fd_demod(samples, idx, *prm, MIB_DFT)
+            want = fd_demod_plain(samples, idx, *prm, MIB_DFT)
+        else:
+            got = fd_demod_stream(samples, idx, *prm)
+            want = fd_demod_stream_plain(samples, idx, *prm)
+        err, mx = float((got - want).abs().max()), float(want.abs().max())
+        check(err <= 1e-4 * mx,
+              f"{mode} at {n_e} edge starts (0, every start mod 128, the "
+              f"last row, past the end of the {samples.shape[0]} samples): "
+              f"max abs err {err:.3e} (tolerance 1e-4 * max {mx:.3e})")
+    llr_tie = torch.from_numpy(rng.integers(-2, 3, (10, 12, 768)).astype(
+        np.float32)).to(dev)
+    bad = (viterbi.viterbi_tl(llr_tie) != viterbi.viterbi_tl_plain(llr_tie)
+           ).any(dim=0).nonzero().flatten()
+    check(len(bad) == 0,
+          f"viterbi on tie-heavy integer LLRs in -2..2, L=768: {len(bad)} "
+          "codeword(s) differ from the plain version (bits must be "
+          "identical)")
+
     # The wrappers refuse what the kernels do not take.
     def refuses(fn) -> bool:
         try:
@@ -604,6 +681,8 @@ def main() -> int:
               cap3, tpl31, starts31, plan31.n_comb_xc))
           and refuses(lambda: fd_demod(cap_ri, demod_args[0][::2],
                                        *demod_args[1:]))
+          and refuses(lambda: fd_demod(cap_ri, *demod_args[:4],
+                                       SubcarrierDFT(MIB_DFT.bins[:70], 0)))
           and refuses(lambda: viterbi.viterbi_tl(llr_tl[:, :6]))
           and refuses(lambda: fd_demod_stream(str_args[0].float(),
                                               *str_args[1:]))
@@ -643,15 +722,30 @@ def main() -> int:
 
     # The tracker path: 400 blocks (2.08 s) of the simulated cell.
     sig_trk = synthetic_capture(n_subframes=400, **TRACKER_SIG)
+    # The stream launches' sizes are recorded on the way (a tap that
+    # calls the wrapper once per call).
+    trk_sizes = []
+
+    def size_tap(*args):
+        trk_sizes.append(int(args[1].shape[0]))
+        return orig_fd(*args)
+
     t0 = time.perf_counter()
+    br.fd_demod_stream = size_tap
     kernels.reset_launches()
-    trk = LTETracker(FC, initial_freq_offset=4000.0)
-    trk.run(playback_source(sig_trk), max_blocks=400)
-    torch.cuda.synchronize()
-    trk_launches = dict(kernels.LAUNCHES)
+    try:
+        trk = LTETracker(FC, initial_freq_offset=4000.0)
+        trk.run(playback_source(sig_trk), max_blocks=400)
+        torch.cuda.synchronize()
+        trk_launches = dict(kernels.LAUNCHES)
+    finally:
+        br.fd_demod_stream = orig_fd
     t_trk = time.perf_counter() - t0
+    trk_med = int(np.median(trk_sizes))
     print(f"tracker path launches: {json.dumps(trk_launches)} "
-          f"({t_trk:.1f} s for 400 blocks)")
+          f"({t_trk:.1f} s for 400 blocks); stream launch sizes: median "
+          f"{trk_med}, min {min(trk_sizes)}, max {max(trk_sizes)} windows",
+          flush=True)
     for name in TRACKER_KERNELS:
         check(trk_launches[name] > 0, f"{name} launched "
               f"{trk_launches[name]} time(s) on the tracker path")
@@ -681,7 +775,7 @@ def main() -> int:
     # The tools path.
     t0 = time.perf_counter()
     kernels.reset_launches()
-    tools = tools_path(caps)
+    tools = tools_path(caps, (trk_med, 1050, n_str))
     torch.cuda.synchronize()
     tools_launches = dict(kernels.LAUNCHES)
     print(f"tools path launches: {json.dumps(tools_launches)} "
@@ -691,8 +785,8 @@ def main() -> int:
               f"{tools_launches[name]} time(s) on the tools path")
 
     # ---- 4. timing.
-    t_scan = cuda_ms(lambda: xcorr_torch.xcorr_fold(cap2, tpl31, starts31,
-                                                     plan31.n_comb_xc))
+    t_scan = cuda_ms(lambda: xcorr_torch.xcorr_fold(
+        cap2, tpl31, starts31, plan31.n_comb_xc))
     t_scan_plain = cuda_ms(lambda: xcorr_torch.xcorr_fold_plain(
         cap2, tpl31, starts31, plan31.n_comb_xc))
     n_ch = 3 * len(fset31)
@@ -765,6 +859,13 @@ def main() -> int:
           f"total {sum(mibs)} decodes) at health 1.0")
     t_str = cuda_ms(lambda: fd_demod_stream(*str_args))
     t_str_plain = cuda_ms(lambda: fd_demod_stream_plain(*str_args))
+    t_fft, t_mm = {}, {}
+    for n in (n_win, n_str):
+        t_fft[n], t_mm[n] = fd_yardsticks(n)
+        print(f"K4 yardsticks at N={n} (partial: no gather, rotations or "
+              f"bin selection): torch.fft.fft (N, 128) complex64 "
+              f"{t_fft[n]:.4f} ms, f32 matmul (N, 256) @ (256, 144) "
+              f"{t_mm[n]:.4f} ms")
     t_vit_trk = cuda_ms(lambda: viterbi.viterbi_tl(llr_trk))
     t_vit_trk_plain = cuda_ms(lambda: viterbi.viterbi_tl_plain(llr_trk))
 
@@ -777,19 +878,25 @@ def main() -> int:
     scan3_b = bound(n_ch * 9600 * n_comb * (137 * 6 + 7),
                     4 * (3 * n_cap + n_ch * 3 * 137 + n_f * n_comb
                          + n_ch * 9600))
-    fd_b = bound(n_win * (128 * 72 * 8 + 128 * 8 + 72 * 10),
-                 8 * n_cap + n_win * 4 * 4 + 4 * (2 * 128 * 72 + 72)
-                 + n_win * 72 * 8)
-    str_b = bound(n_str * (128 * 72 * 8 + 128 * 12 + 72 * 10),
-                  str_args[0].numel() + n_str * 4 * 4
-                  + 4 * (2 * 128 * 72 + 72) + n_str * 72 * 8)
+    # K4: the FFT's flops, the pre-rotation (phase and complex product, 8
+    # per sample, plus 4 for the u8 conversion) and per bin the shift
+    # factor and the post-rotation (16); bins (72 i32) as the table.
+    fd_b = bound(n_win * (FFT128_FLOPS + 128 * 8 + 72 * 16),
+                 8 * n_cap + n_win * 4 * 4 + 4 * 72 + n_win * 72 * 8)
+    str_b = bound(n_str * (FFT128_FLOPS + 128 * 12 + 72 * 16),
+                  str_args[0].numel() + n_str * 4 * 4 + 4 * 72
+                  + n_str * 72 * 8)
 
     def vit_bound(llr):
+        # 11 adds per branch sum; an add and a max per finite candidate:
+        # of the joint pass's 16 per (state, start), steps 0 and 1 have 1
+        # and 4, and from its one start the replay's 64 states have 16 x
+        # 1, then 64 x 4, then 64 x 16; the sign mask and BITS tables.
         n_steps, _, n = llr.shape
-        return bound(n * n_steps * (2 * 1024 * 24 + 64 * 64 * 16 * 2
-                                    + 64 * 16 * 2),
-                     4 * (llr.numel() + 12 * 1024 + 1024 * 4
-                          + 4 * n_steps * n))
+        joint = 64 * 64 * (1 + 4 + 16 * (n_steps - 2))
+        replay = 16 + 64 * 4 + 64 * 16 * (n_steps - 2)
+        return bound(n * (n_steps * 1024 * 11 + 2 * (joint + replay)),
+                     4 * (llr.numel() + 1024 + 1024 * 4 + 4 * n_steps * n))
 
     vit_b, vit_trk_b = vit_bound(llr_tl), vit_bound(llr_trk)
     print(f"viterbi at the tracker batch L={n_trk_cw}: {t_vit_trk:.4f} ms "
@@ -815,14 +922,14 @@ def main() -> int:
              replaces="lte_cell_scanner_tpu/ops/fd_demod_pallas.py:58 (K4)",
              launches=launches["fd_demod"], max_abs_err=fd_err, ms=t_fd,
              plain_ms=t_fd_plain, bound_ms=fd_b[0], bound_by=fd_b[1],
-             library_ms=None),
+             library_ms=t_fft[n_win]),
         dict(name="fd_demod_stream", route="cuda",
              source="lte_cell_scanner_tpu_torch/csrc/fd_demod.cu",
              replaces="lte_cell_scanner_tpu/ops/fd_demod_pallas.py:58 (K4, "
                       "tracker mode)",
              launches=trk_launches["fd_demod_stream"], max_abs_err=str_err,
              ms=t_str, plain_ms=t_str_plain, bound_ms=str_b[0],
-             bound_by=str_b[1], library_ms=None),
+             bound_by=str_b[1], library_ms=t_fft[n_str]),
         dict(name="viterbi", route="cuda",
              source="lte_cell_scanner_tpu_torch/csrc/viterbi.cu",
              replaces="lte_cell_scanner_tpu/models/viterbi_pallas.py:63 (K5)",
@@ -832,8 +939,9 @@ def main() -> int:
              library_ms=None),
     ]
     for r in rows:
-        print(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
+        print(f"{r['name']}: {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']})")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -32,17 +32,26 @@ _K = 4
 _JK = 2 ** _K          # chains per fused step
 
 
+def sign_mask(A: np.ndarray) -> np.ndarray:
+    """(12, 1024) +-1 -> (1024,) i32 whose bit k is set where A[k, p] is
+    -1: the kernel's sign table (A * l is l with that sign bit flipped)."""
+    return ((A < 0).astype(np.int64)
+            << np.arange(A.shape[0])[:, None]).sum(axis=0).astype(np.int32)
+
+
 @functools.lru_cache(maxsize=4)
 def _tables(device: torch.device):
-    """On ``device``: A (12, 1024) f32 of +-1, BITS (1024, 4) i32 and the
-    predecessor table pred[s, j] = ((s << 4) & 63) | j (64, 16) i64."""
+    """On ``device``: A (12, 1024) f32 of +-1, BITS (1024, 4) i32, the
+    predecessor table pred[s, j] = ((s << 4) & 63) | j (64, 16) i64 and
+    A's sign mask (1024,) i32."""
     A, BITS = chain_tables(_K)
     s = np.arange(N_STATES)[:, None]
     pred = ((s & 3) << 4) | np.arange(_JK)[None, :]
     return (torch.from_numpy(np.ascontiguousarray(A, np.float32)).to(device),
             torch.from_numpy(np.ascontiguousarray(
                 BITS.reshape(N_STATES * _JK, _K), np.int32)).to(device),
-            torch.from_numpy(pred).to(device))
+            torch.from_numpy(pred).to(device),
+            torch.from_numpy(sign_mask(A)).to(device))
 
 
 def branch_sums(llr_tl: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
@@ -59,7 +68,7 @@ def viterbi_metrics_plain(llr_tl: torch.Tensor):
     """Joint-pass metrics of the plain decoder: (final (L, 64, 64) as
     [start, state], adds (n_steps, L, 64, 16)). chip_smoke.py reads the
     winner-vs-runner-up gap of the diagonal from it."""
-    A, _, pred = _tables(llr_tl.device)
+    A, _, pred, _ = _tables(llr_tl.device)
     adds = branch_sums(llr_tl, A)
     L = llr_tl.shape[2]
     m = torch.full((L, N_STATES, N_STATES), float("-inf"),
@@ -74,7 +83,7 @@ def viterbi_tl_plain(llr_tl: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the ``viterbi`` kernel (same contract)."""
     n_steps, _, L = llr_tl.shape
     dev = llr_tl.device
-    _, bits_tab, pred = _tables(dev)
+    _, bits_tab, pred, _ = _tables(dev)
     m, adds = viterbi_metrics_plain(llr_tl)
     start = torch.argmax(torch.diagonal(m, dim1=1, dim2=2), dim=1)  # (L,)
     m1 = torch.full((L, N_STATES), float("-inf"), dtype=torch.float32,
@@ -110,13 +119,13 @@ def viterbi_tl(llr_tl: torch.Tensor) -> torch.Tensor:
         raise ValueError("viterbi_tl: want contiguous f32 (n_steps <= 32, "
                          f"12, L), got {llr_tl.dtype} {tuple(llr_tl.shape)}")
     n_steps, _, L = llr_tl.shape
-    A, bits_tab, _ = _tables(llr_tl.device)
+    _, bits_tab, _, mask = _tables(llr_tl.device)
     out = torch.empty((_K * n_steps, L), dtype=torch.float32,
                       device=llr_tl.device)
     if L == 0:
         return out
     code = launcher("viterbi")(
-        llr_tl.data_ptr(), n_steps, L, A.data_ptr(), bits_tab.data_ptr(),
+        llr_tl.data_ptr(), n_steps, L, mask.data_ptr(), bits_tab.data_ptr(),
         out.data_ptr(), torch.cuda.current_stream(llr_tl.device).cuda_stream)
     check_launch("viterbi", code)
     LAUNCHES["viterbi"] += 1

@@ -43,7 +43,7 @@ from lte_cell_scanner_tpu_torch.models.ratematch import _index_map
 from lte_cell_scanner_tpu_torch.models.rs import rs_dl_shift
 from lte_cell_scanner_tpu_torch.models.viterbi import viterbi_tl
 from lte_cell_scanner_tpu_torch.ops.chanest import _hex_extend, _hex_pair_map
-from lte_cell_scanner_tpu_torch.ops.fd_demod import fd_demod
+from lte_cell_scanner_tpu_torch.ops.fd_demod import MIB_DFT, fd_demod
 from lte_cell_scanner_tpu_torch.ops.pbch import N_RB_DL_TABLE, PHICH_RES_TABLE
 from lte_cell_scanner_tpu_torch.ops.sync_torch import (cabs2, cconj, cmul,
                                                        rot_pair)
@@ -56,15 +56,6 @@ MIB_STAGES = ("tfg", "tfoec", "toe", "chanest", "pbch", "llr", "vit")
 
 # ----------------------------------------------------------------------
 # Constant tables (host side, cached per CP geometry).
-
-
-@functools.lru_cache(maxsize=1)
-def _dft72():
-    """(128, 72) unitary DFT restricted to the 72 kept subcarriers."""
-    bins = np.concatenate([np.arange(92, 128), np.arange(1, 37)])
-    t = np.arange(128)[:, None]
-    w = np.exp(-2j * np.pi * t * bins[None, :] / 128.0) / np.sqrt(128.0)
-    return w.real.astype(np.float32), w.imag.astype(np.float32)
 
 
 @functools.lru_cache(maxsize=1)
@@ -395,8 +386,6 @@ class _Consts:
     """Device-resident constants of one CP geometry and interpolator."""
 
     cn: torch.Tensor          # (72,) subcarrier index
-    wr: torch.Tensor          # (128, 72) DFT
-    wi: torch.Tensor
     wd_k: torch.Tensor        # (120, m_bit) deratematch, time-major rows
     crc_m: torch.Tensor       # (24, 16) f32
     crc_masks: torch.Tensor   # (3, 16) i64
@@ -451,9 +440,8 @@ def _consts(n_symb_dl: int, n_ofdm: int, m_bit: int, interp: str,
             tabs, pidx = _hex_interp_tabs(n_symb_dl, n_ofdm, rows_sel, pc)
             hexes.append((put(tabs.astype(np.float32)), put(pidx).long()))
     rs, sh, scr = _all_cell_tables(cp_type)
-    wr, wi = _dft72()
     return _Consts(
-        cn=put(CN.astype(np.float32)), wr=put(wr), wi=put(wi),
+        cn=put(CN.astype(np.float32)),
         wd_k=put(wd[perm]), crc_m=put(_crc16_mat().astype(np.float32)),
         crc_masks=put(_crc_masks()).long(), idx_c=put(rows_used).long(),
         pbch_cols=put(np.argmax(sel, axis=2)).long(),
@@ -629,14 +617,14 @@ def _unpack_plan(plan, k: _Consts, dev):
     return starts, phase0, late, ts, _put(plan.n_id, dev).long()
 
 
-def _demod_args(starts, inwin, phase0, late, k: _Consts):
+def _demod_args(starts, inwin, phase0, late):
     """The fd_demod arguments after the capture, one window per compact
-    row: (idx, foc, bpo, late, wr, wi, cn)."""
+    row: (idx, foc, bpo, late, the DFT :data:`MIB_DFT`)."""
     B, S = starts.shape
     return (starts.reshape(-1).to(torch.int32),
             inwin[:, None].expand(B, S).reshape(-1).contiguous(),
             phase0.reshape(-1).contiguous(), late.reshape(-1).contiguous(),
-            k.wr, k.wi, k.cn)
+            MIB_DFT)
 
 
 def fd_demod_inputs(plan, device) -> tuple:
@@ -645,7 +633,7 @@ def fd_demod_inputs(plan, device) -> tuple:
     dev = torch.device(device)
     k = _consts(plan.n_symb_dl, plan.n_ofdm, plan.m_bit, "hex", dev)
     starts, phase0, late, _, _ = _unpack_plan(plan, k, dev)
-    return _demod_args(starts, _put(plan.inwin, dev), phase0, late, k)
+    return _demod_args(starts, _put(plan.inwin, dev), phase0, late)
 
 
 def run(cap: torch.Tensor, plan, interp: str = "hex",
@@ -681,7 +669,7 @@ def run(cap: torch.Tensor, plan, interp: str = "hex",
     lower_first = (shifts[:, 0, 0] < shifts[:, 0, 1]).to(torch.float32)
 
     # ---- extract_tfg: the fd_demod kernel.
-    tfg = fd_demod(cap, *_demod_args(starts, inwin, phase0, late, k)
+    tfg = fd_demod(cap, *_demod_args(starts, inwin, phase0, late)
                    ).view(B, S, 72, 2)
     keep("tfg", tfg)
 

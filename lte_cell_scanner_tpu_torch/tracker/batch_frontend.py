@@ -15,6 +15,7 @@ the JAX package's) and cached per device.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -33,9 +34,10 @@ def from_ri(x) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=32)
-def on_device(table, device: torch.device):
-    """The numpy tables returned by ``table()`` as tensors on ``device``."""
-    got = table()
+def on_device(table, device: torch.device, *args):
+    """The numpy tables returned by ``table(*args)`` as tensors on
+    ``device``."""
+    got = table(*args)
     if isinstance(got, np.ndarray):
         return torch.from_numpy(got).to(device)
     return tuple(torch.from_numpy(m).to(device) for m in got)
@@ -44,25 +46,43 @@ def on_device(table, device: torch.device):
 # ----------------------------------------------------------------------
 # get_fd: FOC + 2-sample TOC + DFT(128 -> 72 SC) + phase compensation.
 
-_CN = np.concatenate([np.arange(-36, 0), np.arange(1, 37)]).astype(np.float64)
 _BINS = np.concatenate([np.arange(92, 128), np.arange(1, 37)])
 
 
-@functools.lru_cache(maxsize=1)
-def _dft_mats():
-    """(128, 72) cos/sin of the unitary DFT restricted to the 72 sync
-    bins, with the 2-sample cyclic rotation folded in."""
+class SubcarrierDFT(NamedTuple):
+    """A 128 -> len(bins) DFT named by its output bins and the cyclic
+    shift of its input window: y = x @ (wr + i*wi) with
+
+        W[t, k] = exp(-2*pi*i*((t - shift) mod 128)*bins[k]/128) / sqrt(128),
+
+    the unitary DFT, at ``bins``, of x rotated left by ``shift`` samples
+    (x[(u + shift) % 128] at lane u). The symbol-demod kernel
+    computes it as a 128-point FFT, the bin selection and the per-bin
+    factor exp(+2*pi*i*shift*bins[k]/128) / sqrt(128)."""
+
+    bins: Tuple[int, ...]
+    shift: int
+
+
+# The search chain's extract_tfg (ops/mib_torch.py) and the tracker's
+# get_fd, whose 2-sample TOC rotate is the shift.
+MIB_DFT = SubcarrierDFT(tuple(int(b) for b in _BINS), 0)
+TRACKER_DFT = SubcarrierDFT(tuple(int(b) for b in _BINS), 2)
+
+
+def dft_mats(dft: SubcarrierDFT):
+    """(128, K) cos/sin of ``dft``, built in float64 and rounded to f32."""
     t = np.arange(128)[:, None]
-    k = _BINS[None, :]
-    # The 2-sample TOC rotate (y[u] = x[(u+2) % 128]) is folded in:
-    # sum_u x[(u+2)%128] e^{-2pi j u k/128} = sum_t x[t] e^{-2pi j (t-2) k/128}.
-    w = np.exp(-2j * np.pi * ((t - 2) % 128) * k / 128.0) / np.sqrt(128.0)
+    k = np.asarray(dft.bins)[None, :]
+    w = np.exp(-2j * np.pi * ((t - dft.shift) % 128) * k / 128.0) \
+        / np.sqrt(128.0)
     return w.real.astype(np.float32), w.imag.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=1)
-def _cn32():
-    return _CN.astype(np.float32)
+def dft_cn(dft: SubcarrierDFT) -> np.ndarray:
+    """(K,) f32 signed subcarrier index of each bin (bin - 128 above 63)."""
+    b = np.asarray(dft.bins)
+    return np.where(b < 64, b, b - 128).astype(np.float32)
 
 
 def get_fd_batch(data, foc_rate, bpo, late, j=None):
@@ -87,13 +107,13 @@ def get_fd_batch(data, foc_rate, bpo, late, j=None):
     ph = foc_rate[..., None] * t                      # (..., 128)
     x = cmul(data, torch.stack([torch.cos(ph), torch.sin(ph)], dim=-1))
 
-    wr, wi = on_device(_dft_mats, dev)
+    wr, wi = on_device(dft_mats, dev, TRACKER_DFT)
     # y = x @ W (the 2-sample rotation lives inside W)
     yr = x[..., 0] @ wr - x[..., 1] @ wi
     yi = x[..., 0] @ wi + x[..., 1] @ wr
 
     # Fractional-timing ramp + bulk phase in one rotation per subcarrier.
-    cn = on_device(_cn32, dev)
+    cn = on_device(dft_cn, dev, TRACKER_DFT)
     ang = bpo[..., None] - 2 * np.pi * late[..., None] * cn / 128.0
     rot = torch.stack([torch.cos(ang), torch.sin(ang)], dim=-1)
     return cmul(torch.stack([yr, yi], dim=-1), rot)

@@ -16,9 +16,10 @@ from lte_cell_scanner_tpu.tools import noise_bias as jax_nb
 from lte_cell_scanner_tpu.tools import pss_ambiguity as jax_amb
 from lte_cell_scanner_tpu.tools.rtl_sdr_check import \
     check_capture as jax_check_capture
-from lte_cell_scanner_tpu_torch.tools import (bench_decode, bench_scan,
-                                              bench_viterbi, mc_search,
-                                              noise_bias, pss_ambiguity)
+from lte_cell_scanner_tpu_torch.tools import (bench_decode, bench_demod,
+                                              bench_scan, bench_viterbi,
+                                              mc_search, noise_bias,
+                                              pss_ambiguity)
 from lte_cell_scanner_tpu_torch.tools.rtl_sdr_check import check_capture
 
 
@@ -202,3 +203,14 @@ def test_bench_decode_stages():
     assert cum == sorted(cum) and out["value"] == cum[-1]
     assert sum(out[f"mib_{st}_delta_ms"] for st in bench_decode.STAGES) \
         == pytest.approx(cum[-1])
+
+
+def test_bench_demod_sizes():
+    out = bench_demod.main(["--device", "cpu", "--windows", "5,40",
+                            "--samples", "4000", "--iters", "1"])
+    assert out["device"] == "cpu" and out["samples"] == 4000
+    assert [r["windows"] for r in out["sizes"]] == [5, 40]
+    for r in out["sizes"]:
+        # On the CPU both variants run the plain version.
+        assert r["max_abs_err"] == 0.0
+        assert r["plain_ms"] > 0 and r["cuda_ms"] > 0
