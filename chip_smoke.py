@@ -14,8 +14,13 @@ if any fails:
    sources from csrc/ (one nvcc each, started together).
 2. Hold each kernel against its plain PyTorch version at the shapes of its
    path: the scan at 80 ms and the full 31-hypothesis grid (plus an
-   extreme +-600 kHz grid), in both modes (2x2 and Karatsuba, the latter
-   also against the 2x2 kernel), the symbol demod's MIB mode and the Viterbi
+   extreme +-600 kHz grid), in both modes (the tensor-core 3xTF32 kernel
+   and Karatsuba, the latter also against the former); the tensor-core
+   kernel also at 1 and 17 hypotheses, on the unsorted +-600 kHz grid, on
+   a capture of fewer than 15 folds and on bf16-rounded inputs (exact
+   products: rtol 1e-6), and its error at 31 hypotheses against a float64
+   reference beside the plain version's and the 3xTF32 emulation's, with
+   the peak table's margin to a tie; the symbol demod's MIB mode and the Viterbi
    decoder at the MIB batch of 64 candidates (25,216 windows, 768
    codewords); the symbol demod's stream mode and the Viterbi decoder on
    the inputs of a real tracker cycle at full width (96 cells x 300 ms of
@@ -44,7 +49,8 @@ if any fails:
    the end-to-end
    search on the host clock (median of 20); time the tracker's capacity run
    (96 replicated cells, 300 ms cycles, host clock ending in a sync,
-   median cycle), its stage split and its device-busy share.
+   median cycle), its stage split and its device-busy share; and the
+   host cost of a launch's device guard.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
@@ -65,6 +71,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores, FMA = 2
+PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 WARMUP, REPS = 3, 20
 FC = 739e6
@@ -256,10 +263,92 @@ def fd_yardsticks(n: int):
     return t_fft, t_mm
 
 
-def bound(flops: float, nbytes: float):
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
+    t_ops = flops / peak * 1e3
     t_mem = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def scan_tc_flops(n_f: int, n_comb: int) -> float:
+    """Flops of the scan's function on the tensor cores: 3 n_f channels x
+    9600 lags x n_comb folds x 137 complex MACs (8 real flops), three TF32
+    products each (3xTF32). What the kernel runs beyond this (its groups'
+    fold-start spread, a padded group's zero templates) is not counted."""
+    return 3.0 * 3 * n_f * 9600 * n_comb * 137 * 8
+
+
+def k1_accuracy(xcorr_torch, cap2, plan, single, packed, table, ds):
+    """K1's error on the 31-hypothesis scan against a float64 reference
+    of the same function (the plain version in float64 on the CPU), beside
+    the float32 plain version's (card and CPU) and the 3xTF32 emulation's
+    (CPU: the kernel's products, summed in float32). Then the peak table's
+    margin: over its peaks, the smallest gap in the reference between the
+    winner and the runner-up of the two argmaxes that place a peak, the
+    hypothesis at the peak's lag and the lag within +-ds at the peak's
+    hypothesis. Prints both; returns the kernel's error."""
+    import torch
+
+    n_f = plan.tpl.shape[0]
+    tpl, starts = torch.from_numpy(plan.tpl), torch.from_numpy(plan.starts)
+    cpu = cap2.cpu()
+
+    def as3(fold):
+        return fold.view(n_f, 3, -1).permute(1, 2, 0).double().cpu()
+
+    ref = as3(xcorr_torch.xcorr_fold_plain(cpu.double(), tpl.double(),
+                                           starts, plan.n_comb_xc))
+    routes = {
+        "kernel (card)": single.double().cpu(),
+        "plain f32 (card)": as3(xcorr_torch.xcorr_fold_plain(
+            cap2, tpl.to(cap2.device), starts.to(cap2.device),
+            plan.n_comb_xc)),
+        "plain f32 (CPU)": as3(xcorr_torch.xcorr_fold_plain(
+            cpu, tpl, starts, plan.n_comb_xc)),
+        "3xTF32 emulation (CPU)": as3(xcorr_torch.xcorr_fold_3xtf32_plain(
+            cpu, tpl, starts, plan.n_comb_xc)),
+    }
+    errs = {k: float((v - ref).abs().max()) for k, v in routes.items()}
+    print(f"K1 max abs error against float64 (max |ref| "
+          f"{float(ref.abs().max()):.4e}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    inc = xcorr_torch._delay_spread(ref, ds)
+    coll = packed[0:3].double().cpu()
+    gaps = []
+    for pw, ind_r, foi, n2 in table.double().cpu().numpy():
+        if pw <= 0:
+            break
+        n2, foi = int(n2), int(foi)
+        win = (int(ind_r) + np.arange(-ds, ds + 1)) % 9600
+        ind = int(win[np.argmin(np.abs(coll[n2, win].numpy() - pw))])
+        top = torch.topk(inc[n2, ind], 2).values
+        gaps.append(float(top[0] - top[1]))
+        lags = (ind + np.arange(-ds, ds + 1)) % 9600
+        top = torch.topk(ref[n2, lags, foi], 2).values
+        gaps.append(float(top[0] - top[1]))
+    print(f"K1 peak-table margin: smallest winner - runner-up gap over "
+          f"{len(gaps) // 2} peaks {min(gaps):.4e}, "
+          f"{min(gaps) / errs['kernel (card)']:.1f}x the kernel's error")
+    return errs["kernel (card)"]
+
+
+def guard_us(dev) -> tuple:
+    """Host microseconds per enter and exit of ``torch.cuda.device(dev)``
+    and of ``launch_device(dev)`` (a no-op when dev is current), median of
+    5 runs of 20,000."""
+    import torch
+    from lte_cell_scanner_tpu_torch.utils.device import launch_device
+
+    out = []
+    for ctx in (torch.cuda.device, launch_device):
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(20000):
+                with ctx(dev):
+                    pass
+            runs.append((time.perf_counter() - t0) / 20000 * 1e6)
+        out.append(float(np.median(runs)))
+    return tuple(out)
 
 
 def harvest_pdus(n_pdus: int):
@@ -501,29 +590,36 @@ def main() -> int:
         return (plan, torch.from_numpy(plan.tpl).to(dev),
                 torch.from_numpy(plan.starts).to(dev))
 
-    def close(got, want, what):
+    def close(got, want, what, rtol=1e-5):
         err = (got - want).abs()
-        tol = 1e-5 * want.abs() + 1e-6 * want.abs().max()
+        tol = rtol * want.abs() + 1e-6 * want.abs().max()
         check(bool((err <= tol).all()),
               f"{what}: max abs err {float(err.max()):.3e} (tolerance rtol "
-              f"1e-5 + atol 1e-6 * max {float(want.abs().max()):.3e})")
+              f"{rtol:g} + atol 1e-6 * max {float(want.abs().max()):.3e})")
         return float(err.max())
+
+    def fold_vs_plain(c2, fset, what, rtol=1e-5, precision="f32"):
+        plan = xcorr_torch.scan_plan(c2.shape[1], fset, FC, FC, 1.92e6,
+                                     precision=precision)
+        tpl = torch.from_numpy(plan.tpl).to(dev)
+        starts = torch.from_numpy(plan.starts).to(dev)
+        got = xcorr_torch.xcorr_fold(c2, tpl, starts, plan.n_comb_xc)
+        want = xcorr_torch.xcorr_fold_plain(c2, tpl, starts, plan.n_comb_xc
+                                            ).view(len(fset), 3, -1
+                                                   ).permute(1, 2, 0)
+        torch.cuda.synchronize()
+        return got, close(got, want, f"xcorr_fold {what} n_f={len(fset)} "
+                          f"n_comb={plan.n_comb_xc}", rtol)
 
     cap3 = xcorr_torch.karatsuba_planes(cap2)
     scan_err, scan3_err = {}, {}
     for label, fset in (("31-hyp", fset31),
                         ("241-hyp", np.arange(-120, 121) * 5e3)):
         plan, tpl, starts = scan_inputs(fset)
-        got = xcorr_torch.xcorr_fold(cap2, tpl, starts, plan.n_comb_xc)
-        want = xcorr_torch.xcorr_fold_plain(cap2, tpl, starts, plan.n_comb_xc
-                                            ).view(len(fset), 3, -1
-                                                   ).permute(1, 2, 0)
-        torch.cuda.synchronize()
-        scan_err[label] = close(got, want, f"xcorr_fold {label} n_f="
-                                f"{len(fset)} n_comb={plan.n_comb_xc}")
-        # The Karatsuba mode: against its plain version, and against the
-        # 2x2 kernel at the JAX package's tea3-vs-roll tolerance (the
-        # same bound: tests/test_xcorr_pallas.py).
+        got, scan_err[label] = fold_vs_plain(cap2, fset, label)
+        # The Karatsuba kernel: against its plain version, and against the
+        # tensor-core kernel at the JAX package's tea3-vs-roll tolerance
+        # (the same bound: tests/test_xcorr_pallas.py).
         tpl3 = torch.from_numpy(xcorr_torch.scan_plan(
             n_cap, fset, FC, FC, 1.92e6, layout="tea3").tpl).to(dev)
         got3 = xcorr_torch.xcorr_fold3(cap3, tpl3, starts, plan.n_comb_xc)
@@ -534,7 +630,21 @@ def main() -> int:
         torch.cuda.synchronize()
         scan3_err[label] = close(got3, want3, f"xcorr_fold3 {label}")
         close(got3, got, f"xcorr_fold3 {label} vs the xcorr_fold kernel")
-        del got, want, got3, want3
+        del got, got3, want3
+    # The tensor-core kernel's other shapes: cell_search's default grid
+    # (one hypothesis), a group padded from 17, an unsorted grid (wide fold
+    # spreads within a group: the span is staged in several passes), a
+    # capture of 6 folds, and bf16-rounded inputs, where lo = 0 and the
+    # products are exact (the sums still run in another order).
+    for what, c2, fset, kw in (
+            ("1-hyp", cap2, np.array([0.0]), {}),
+            ("17-hyp", cap2, np.arange(-8, 9) * 5e3, {}),
+            ("241-hyp unsorted", cap2, np.random.default_rng(1).permutation(
+                np.arange(-120, 121)) * 5e3, {}),
+            ("short capture", cap2[:, :60000].contiguous(), fset31, {}),
+            ("bf16-rounded", xcorr_torch.round_bf16(cap2), fset31,
+             dict(rtol=1e-6, precision="bf16"))):
+        fold_vs_plain(c2, fset, what, **kw)
 
     # The MIB batch of 64 candidates: the capture's detected cell at 64
     # timings and frequencies around it.
@@ -542,9 +652,10 @@ def main() -> int:
     tpl31_3 = torch.from_numpy(xcorr_torch.scan_plan(
         n_cap, fset31, FC, FC, 1.92e6, layout="tea3").tpl).to(dev)
     packed, single, _ = xcorr_torch.xcorr_core(cap2, plan31, 2)
-    peaks = peaks_to_cells(peak_search_device(
-        packed, single, r_th1_normalized(plan31.n_comb_xc, 2), 2).cpu().numpy(),
-        fset31, FC, FC)
+    table = peak_search_device(packed, single,
+                               r_th1_normalized(plan31.n_comb_xc, 2), 2)
+    k1_accuracy(xcorr_torch, cap2, plan31, single, packed, table, 2)
+    peaks = peaks_to_cells(table.cpu().numpy(), fset31, FC, FC)
     synced = [c for c in sss_foe_batch(peaks, cap_ri, 3.0)
               if c.n_id_1 >= 0 and c.cp_type == "normal"]
     check(bool(synced), "the normal-CP capture yields a synced candidate")
@@ -789,6 +900,16 @@ def main() -> int:
         cap2, tpl31, starts31, plan31.n_comb_xc))
     t_scan_plain = cuda_ms(lambda: xcorr_torch.xcorr_fold_plain(
         cap2, tpl31, starts31, plan31.n_comb_xc))
+    plan241, tpl241, starts241 = scan_inputs(np.arange(-120, 121) * 5e3)
+    t_scan241 = cuda_ms(lambda: xcorr_torch.xcorr_fold(
+        cap2, tpl241, starts241, plan241.n_comb_xc))
+    b241 = scan_tc_flops(241, plan241.n_comb_xc) / PEAK_TF32_FLOPS * 1e3
+    print(f"xcorr_fold at 241 hypotheses: {t_scan241:.4f} ms (tensor-core "
+          f"bound {b241:.4f} ms)")
+    g_dev, g_launch = guard_us(dev)
+    print(f"device guard per launch (host): torch.cuda.device {g_dev:.3f} "
+          f"us, launch_device {g_launch:.3f} us")
+    del tpl241, starts241
     n_ch = 3 * len(fset31)
     w_re = tpl31[:, :, 0].reshape(n_ch, -1)
     w_im = tpl31[:, :, 1].reshape(n_ch, -1)
@@ -870,9 +991,13 @@ def main() -> int:
     t_vit_trk_plain = cuda_ms(lambda: viterbi.viterbi_tl_plain(llr_trk))
 
     n_f, n_comb = len(fset31), plan31.n_comb_xc
-    scan_b = bound(n_ch * 9600 * n_comb * (137 * 8 + 3),
-                   4 * (2 * n_cap + n_ch * 2 * 137 + n_f * n_comb
-                        + n_ch * 9600))
+    scan_bytes = 4 * (2 * n_cap + n_ch * 2 * 137 + n_f * n_comb
+                      + n_ch * 9600)
+    # K1 on the tensor cores: three TF32 products per MAC of the function.
+    scan_b = bound(scan_tc_flops(n_f, n_comb), scan_bytes, PEAK_TF32_FLOPS)
+    # The same function's f32 FMA count on the CUDA cores (the bound of a
+    # CUDA-core kernel).
+    scan_fma_b = bound(n_ch * 9600 * n_comb * (137 * 8 + 3), scan_bytes)
     # Karatsuba: three FMAs per tap, then re = k1 - k2, im = k3 - k1 - k2
     # and |xc|^2 accumulated (7 flops); the capture sum a+b is an input.
     scan3_b = bound(n_ch * 9600 * n_comb * (137 * 6 + 7),
@@ -909,7 +1034,8 @@ def main() -> int:
                       "lte_cell_scanner_tpu/ops/xcorr_pallas.py:51 (K2)",
              launches=launches["xcorr_fold"], max_abs_err=scan_err["31-hyp"],
              ms=t_scan, plain_ms=t_scan_plain, bound_ms=scan_b[0],
-             bound_by=scan_b[1], library_ms=t_conv),
+             bound_by=scan_b[1], library_ms=t_conv,
+             fma_bound_ms=scan_fma_b[0]),
         dict(name="xcorr_fold3", route="cuda",
              source="lte_cell_scanner_tpu_torch/csrc/xcorr_fold.cu",
              replaces="lte_cell_scanner_tpu/ops/xcorr_pallas.py:174 (K3)",
@@ -941,7 +1067,9 @@ def main() -> int:
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
-              f"{r['bound_by']})")
+              f"{r['bound_by']}"
+              + (f"; f32 FMA bound {r['fma_bound_ms']:.4f} ms"
+                 if "fma_bound_ms" in r else "") + ")")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

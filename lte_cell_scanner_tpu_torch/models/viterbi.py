@@ -27,6 +27,7 @@ import torch
 from lte_cell_scanner_tpu_torch.kernels import LAUNCHES
 from lte_cell_scanner_tpu_torch.kernels.build import check_launch, launcher
 from lte_cell_scanner_tpu_torch.models.convcode import N_STATES, chain_tables
+from lte_cell_scanner_tpu_torch.utils.device import launch_device
 
 _K = 4
 _JK = 2 ** _K          # chains per fused step
@@ -124,9 +125,11 @@ def viterbi_tl(llr_tl: torch.Tensor) -> torch.Tensor:
                       device=llr_tl.device)
     if L == 0:
         return out
-    code = launcher("viterbi")(
-        llr_tl.data_ptr(), n_steps, L, mask.data_ptr(), bits_tab.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(llr_tl.device).cuda_stream)
+    with launch_device(llr_tl.device):
+        code = launcher("viterbi")(
+            llr_tl.data_ptr(), n_steps, L, mask.data_ptr(),
+            bits_tab.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(llr_tl.device).cuda_stream)
     check_launch("viterbi", code)
     LAUNCHES["viterbi"] += 1
     return out

@@ -48,6 +48,7 @@ from lte_cell_scanner_tpu_torch.ops.sync_torch import (_aligned_wins, cmul,
 from lte_cell_scanner_tpu_torch.tracker.batch_frontend import (
     MIB_DFT, TRACKER_DFT, SubcarrierDFT, dft_cn, dft_mats, get_fd_batch,
     on_device)
+from lte_cell_scanner_tpu_torch.utils.device import launch_device
 
 
 def _bins_i32(dft: SubcarrierDFT) -> np.ndarray:
@@ -129,10 +130,12 @@ def _launch(name, samples, dtype, idx, foc, bpo, late, dft):
     out = torch.empty((n, 72, 2), dtype=torch.float32, device=samples.device)
     if n == 0:
         return out
-    code = launcher(name)(
-        samples.data_ptr(), samples.shape[0], idx.data_ptr(), foc.data_ptr(),
-        bpo.data_ptr(), late.data_ptr(), bins.data_ptr(), int(dft.shift), n,
-        out.data_ptr(), torch.cuda.current_stream(samples.device).cuda_stream)
+    with launch_device(samples.device):
+        code = launcher(name)(
+            samples.data_ptr(), samples.shape[0], idx.data_ptr(),
+            foc.data_ptr(), bpo.data_ptr(), late.data_ptr(), bins.data_ptr(),
+            int(dft.shift), n, out.data_ptr(),
+            torch.cuda.current_stream(samples.device).cuda_stream)
     check_launch(name, code)
     LAUNCHES[name] += 1
     return out

@@ -11,11 +11,15 @@ Counterpart of lte_cell_scanner_tpu/ops/xcorr_pallas.py
 
 Layouts (:func:`scan_plan`): "tea" and "roll" name the JAX package's two
 2x2 real-block kernels (K1, K2); one CUDA kernel, ``xcorr_fold``, serves
-both. "tea3" is the Karatsuba kernel (K3): three real products per tap,
+both, on the tensor cores with 3xTF32 products (each operand split into
+``hi = tf32(x)`` and ``lo = tf32(x - hi)``, :func:`tf32_round`; the sum
+``lo*hi + hi*lo + hi*hi`` keeps the error near float32's;
+:func:`xcorr_fold_3xtf32_plain` models the products). "tea3" is the
+Karatsuba kernel (K3): three real products per tap on the CUDA cores,
 ``xcorr_fold3``. Precision "bf16" reproduces the JAX bf16 mode's rounding
 points (the template bank, the window values and, for tea3, the sum
-re+im, each rounded to bfloat16) and then runs the same f32 kernels: a
-numerics option, not a tensor-core kernel.
+re+im, each rounded to bfloat16) and then runs the same kernels; a bf16
+value is exact in TF32, so there the split's low parts are zero.
 
 All k_factor-dependent index arithmetic (template shifts, fold starts) is
 float64 host planning in :func:`scan_plan`; the device works in float32.
@@ -36,6 +40,7 @@ from lte_cell_scanner_tpu_torch.ops.xcorr import (fold_start_indices,
                                                   n_comb_sp_for,
                                                   n_comb_xc_for,
                                                   shifted_templates)
+from lte_cell_scanner_tpu_torch.utils.device import launch_device
 
 LAYOUTS = ("tea", "roll", "tea3")
 PRECISIONS = ("f32", "bf16")
@@ -60,6 +65,13 @@ def round_bf16(x):
     if isinstance(x, np.ndarray):
         return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
     return x.to(torch.bfloat16).float()
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 values to TF32 (a 10-bit mantissa), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32`` does; kept in float32."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
 def scan_plan(n_cap: int, f_search_set, fc_requested: float,
@@ -114,13 +126,43 @@ def xcorr_fold_plain(cap2: torch.Tensor, tpl: torch.Tensor,
 
 
 def _fold_plain_chunk(cap2, tpl, starts, n_comb_xc):
-    n_f = tpl.shape[0]
-    n_ch = 3 * n_f
+    n_ch = 3 * tpl.shape[0]
+    xc = F.conv1d(cap2[None], _block_weight(tpl))[0]      # (2*n_ch, n_lags)
+    return _fold(xc[:n_ch] ** 2 + xc[n_ch:] ** 2, starts, n_comb_xc)
+
+
+def _block_weight(tpl):
+    """(n_f, 3, 2, 137) -> (6 n_f, 2, 137): the [[re, -im], [im, re]]
+    blocks of the complex correlation as a real 2-channel convolution."""
+    n_ch = 3 * tpl.shape[0]
     w_re = tpl[:, :, 0].reshape(n_ch, PSS_TD_LEN)
     w_im = tpl[:, :, 1].reshape(n_ch, PSS_TD_LEN)
-    weight = torch.cat([torch.stack([w_re, -w_im], 1),
-                        torch.stack([w_im, w_re], 1)], 0)
-    xc = F.conv1d(cap2[None], weight)[0]                  # (2*n_ch, n_lags)
+    return torch.cat([torch.stack([w_re, -w_im], 1),
+                      torch.stack([w_im, w_re], 1)], 0)
+
+
+def xcorr_fold_3xtf32_plain(cap2: torch.Tensor, tpl: torch.Tensor,
+                            starts: torch.Tensor, n_comb_xc: int
+                            ) -> torch.Tensor:
+    """The ``xcorr_fold`` kernel's products in plain PyTorch: (n_f*3, 9600).
+
+    The capture and the 2x2 real-block templates split into TF32 hi and lo
+    (:func:`tf32_round`), then three float32 convolutions lo*hi + hi*lo +
+    hi*hi, then |xc|^2 and the fold. A TF32 x TF32 product is exact in
+    float32, so this differs from the kernel only in its sums (their
+    order, and float32's rounding here against the tensor cores' there):
+    it tells the split's error apart from the accumulation's. On the
+    card, call it with float32 convolutions in full float32
+    (``full_f32_matmuls``)."""
+    n_ch = 3 * tpl.shape[0]
+
+    def split(x):
+        hi = tf32_round(x)
+        return hi, tf32_round(x - hi)
+
+    (x_hi, x_lo), (w_hi, w_lo) = split(cap2[None]), split(_block_weight(tpl))
+    xc = (F.conv1d(x_lo, w_hi) + F.conv1d(x_hi, w_lo)
+          + F.conv1d(x_hi, w_hi))[0]
     return _fold(xc[:n_ch] ** 2 + xc[n_ch:] ** 2, starts, n_comb_xc)
 
 
@@ -172,10 +214,12 @@ def _fold_call(name, n_planes, cap, tpl, starts, n_comb_xc):
             raise ValueError(f"{name}: tensors on different devices")
         fold = torch.empty((3 * n_f, HALF_FRAME), dtype=torch.float32,
                            device=cap.device)
-        code = launcher(name)(
-            cap.data_ptr(), cap.shape[1], tpl.data_ptr(), starts.data_ptr(),
-            n_f, n_comb_xc, fold.data_ptr(),
-            torch.cuda.current_stream(cap.device).cuda_stream)
+        # The C launcher launches on the runtime's current device.
+        with launch_device(cap.device):
+            code = launcher(name)(
+                cap.data_ptr(), cap.shape[1], tpl.data_ptr(),
+                starts.data_ptr(), n_f, n_comb_xc, fold.data_ptr(),
+                torch.cuda.current_stream(cap.device).cuda_stream)
         check_launch(name, code)
         LAUNCHES[name] += 1
     return fold.view(n_f, 3, HALF_FRAME).permute(1, 2, 0)

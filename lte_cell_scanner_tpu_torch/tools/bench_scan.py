@@ -5,11 +5,13 @@ greedy peak search).
 Times with CUDA events on the card: warm-up launches, then the median of
 ``--iters`` timed launches. ``--layout`` picks the kernel: "tea" and
 "roll" (the JAX package's K1 and K2 layouts) both run ``xcorr_fold``,
-"tea3" the Karatsuba kernel ``xcorr_fold3`` (K3). ``--precision bf16``
-rounds the correlation's inputs to bfloat16 at the JAX bf16 mode's rounding
-points and runs the same f32 kernels: a numerics option, not a tensor-core
-kernel. The JAX tool's ``--tile`` sized a Mosaic VMEM block and has no
-counterpart here: the CUDA kernel's tile is its fixed 512-lag block.
+"tea3" the Karatsuba kernel ``xcorr_fold3`` (K3). ``xcorr_fold`` runs on
+the tensor cores with 3xTF32 products, ``xcorr_fold3`` on the CUDA cores.
+``--precision bf16`` rounds the correlation's inputs to bfloat16 at the JAX
+bf16 mode's rounding points and runs the same kernels: a numerics option.
+The JAX tool's ``--tile`` sized a Mosaic VMEM block and has no counterpart
+here: each CUDA kernel's tile is fixed, 160 lags x 8 hypotheses for
+``xcorr_fold`` and 512 lags x 1 hypothesis for ``xcorr_fold3``.
 
 Workload: one 80 ms capture (the simulator's, or ``--capture FILE.it``
 with a ``capbuf`` record) at 739 MHz with the +-``--ppm`` hypothesis grid
@@ -36,7 +38,7 @@ from lte_cell_scanner_tpu_torch.ops.peak_torch import (peak_search_device,
 from lte_cell_scanner_tpu_torch.utils.device import (full_f32_matmuls,
                                                      resolve_device)
 
-TILE = 512          # lags per block of the CUDA kernel
+TILE = {"tea": 160, "roll": 160, "tea3": 512}   # lags per block of each kernel
 WARMUP = 3
 
 
@@ -79,7 +81,7 @@ def main(argv=None) -> dict:
     p.add_argument("--precision", choices=xcorr_torch.PRECISIONS,
                    default="f32",
                    help="bf16 rounds the correlation inputs, then runs "
-                        "the f32 kernels (no tensor cores)")
+                        "the same kernels")
     p.add_argument("--layout", choices=("roll", "tea", "tea3"),
                    default="tea")
     p.add_argument("--iters", type=int, default=50)
@@ -138,7 +140,7 @@ def main(argv=None) -> dict:
                    else "cpu"),
         "precision": args.precision,
         "layout": args.layout,
-        "tile": TILE,
+        "tile": TILE[args.layout],
         "n_f": len(fset),
         "n_comb_xc": plan.n_comb_xc,
         "matmul_gflop": round(gflop, 1),

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -25,3 +27,13 @@ def full_f32_matmuls() -> None:
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def launch_device(dev: torch.device):
+    """A context that makes ``dev`` the CUDA runtime's current device for a
+    C launcher (which launches on the current device): ``torch.cuda.device``
+    when another device is current, else a no-op, so that a launch on the
+    current card pays no device switch."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)

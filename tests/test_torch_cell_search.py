@@ -17,6 +17,8 @@ from lte_cell_scanner_tpu_torch.io.simulator import synthetic_capture
 from lte_cell_scanner_tpu_torch.search import cli
 from lte_cell_scanner_tpu_torch.search.cell_search import (
     cell_search, generate_search_sets)
+from torch_one_thread import _one_torch_thread  # noqa: F401
+
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FIELDS = ("fc_requested", "n_id_2", "n_id_1", "cp_type", "frame_start",
@@ -50,6 +52,35 @@ def test_cell_search_matches_jax(kw, fset):
         assert abs(g.freq_superfine - w.freq_superfine) < 0.5
     assert got[0].n_id_cell() == 3 * kw["n_id_1"] + kw["n_id_2"]
     assert got[0].n_rb_dl == kw["n_rb_dl"]
+
+
+def test_table_full_fallback_matches_jax(monkeypatch):
+    """A full peak table (MAX_PEAKS lowered to 1) sends the search down the
+    host peak search over the device's scan tables; the cells still equal
+    the JAX package's."""
+    from lte_cell_scanner_tpu_torch.search import cell_search as cs
+
+    calls = []
+    host_peak_search = cs.peak_search
+
+    def spy(*args, **kwargs):
+        calls.append(1)
+        return host_peak_search(*args, **kwargs)
+
+    monkeypatch.setattr(cs, "MAX_PEAKS", 1)
+    monkeypatch.setattr(cs, "peak_search", spy)
+    kw = dict(n_id_1=90, n_id_2=1, cp_type="normal", snr_db=10,
+              freq_offset=7.7e3, n_rb_dl=50, sfn_start=64, seed=3)
+    fset = np.arange(-3, 4) * 5e3
+    cap = synthetic_capture(**kw)
+    got = cs.cell_search(cap, 739e6, f_search_set=fset, device="cpu")
+    assert calls == [1]
+    want = jax_cell_search(cap, 739e6, f_search_set=fset, backend="jax")
+    assert len(got) == len(want) >= 1
+    for g, w in zip(got, want):
+        assert [getattr(g, f) for f in FIELDS] == \
+            [getattr(w, f) for f in FIELDS]
+        assert abs(g.freq_superfine - w.freq_superfine) < 0.5
 
 
 def test_search_sets_full_grid():

@@ -26,6 +26,7 @@ from lte_cell_scanner_tpu_torch.ops.sync_torch import (_aligned_wins, cmul,
 from lte_cell_scanner_tpu_torch.ops.tfg import CN
 from lte_cell_scanner_tpu_torch.tracker.batch_frontend import (dft_cn,
                                                               dft_mats)
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 
 def test_tables_match_jax():

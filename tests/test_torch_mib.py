@@ -22,6 +22,8 @@ from lte_cell_scanner_tpu_torch.ops.peak_torch import (peak_search_device,
                                                        r_th1_normalized)
 from lte_cell_scanner_tpu_torch.ops.sync_torch import sss_foe_batch
 from lte_cell_scanner_tpu_torch.ops.xcorr_torch import scan_plan, xcorr_core
+from torch_one_thread import _one_torch_thread  # noqa: F401
+
 
 FC = 739e6
 CAPTURES = {

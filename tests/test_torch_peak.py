@@ -15,6 +15,8 @@ from lte_cell_scanner_tpu.ops.peak import peak_search
 from lte_cell_scanner_tpu.search.cell_search import detection_threshold
 from lte_cell_scanner_tpu_torch.ops import peak_torch
 from lte_cell_scanner_tpu_torch.ops.xcorr_torch import scan_plan, xcorr_core
+from torch_one_thread import _one_torch_thread  # noqa: F401
+
 
 FC = 739e6
 

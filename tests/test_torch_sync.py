@@ -19,6 +19,8 @@ from lte_cell_scanner_tpu_torch.ops.peak_torch import (peak_search_device,
                                                        peaks_to_cells,
                                                        r_th1_normalized)
 from lte_cell_scanner_tpu_torch.ops.xcorr_torch import scan_plan, xcorr_core
+from torch_one_thread import _one_torch_thread  # noqa: F401
+
 
 FC = 739e6
 FIELDS = ("n_id_1", "cp_sel", "ord_sel", "detected", "dfreq")

@@ -32,19 +32,9 @@ from lte_cell_scanner_tpu_torch.tracker.runtime import (LTETracker,
                                                         playback_source)
 from lte_cell_scanner_tpu_torch.tracker.searcher import searcher_pass
 from lte_cell_scanner_tpu_torch.tracker.state import GlobalState, TrackedCell
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 F16 = dict(rtol=1e-3, atol_rel=1e-3)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tier-1 run shares the machine's cores among several test
-    processes: keep this module's torch work on one thread so that it does
-    not starve the timing tests running beside it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _close(got, want, rtol=1e-5, atol_rel=1e-5):

@@ -18,6 +18,7 @@ from lte_cell_scanner_tpu_torch.models.convcode import chain_tables
 from lte_cell_scanner_tpu_torch.models.viterbi import (lte_conv_decode_batch,
                                                        sign_mask, viterbi_tl,
                                                        viterbi_tl_plain)
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 
 KINDS = ("random", "encoded")

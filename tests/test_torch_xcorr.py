@@ -18,25 +18,13 @@ import torch
 from lte_cell_scanner_tpu.ops.xcorr_jax import xcorr_pss_jax
 from lte_cell_scanner_tpu.ops.xcorr_pallas import scan_plan as jax_scan_plan
 from lte_cell_scanner_tpu.ops.xcorr_pallas import xcorr_single_pallas
-from lte_cell_scanner_tpu_torch.ops.xcorr_torch import (karatsuba_planes,
-                                                        round_bf16,
-                                                        scan_plan,
-                                                        xcorr_core,
-                                                        xcorr_fold,
-                                                        xcorr_fold3)
+from lte_cell_scanner_tpu_torch.ops import xcorr_torch
+from lte_cell_scanner_tpu_torch.ops.xcorr_torch import (
+    karatsuba_planes, round_bf16, scan_plan, tf32_round, xcorr_core,
+    xcorr_fold, xcorr_fold3, xcorr_fold_3xtf32_plain, xcorr_fold_plain)
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 FC = 739e6
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tier-1 run shares the machine's cores among several test
-    processes: keep this module's torch work on one thread so that it does
-    not starve the timing tests running beside it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _capture(n=48000, seed=0, f_off=10e3):
@@ -191,3 +179,164 @@ def test_core_tea3_matches_tea():
     np.testing.assert_array_equal(k_tea3[:, 1:], k_tea[:, 1:])
     np.testing.assert_allclose(k_tea3[:, 0], k_tea[:, 0], rtol=1e-5)
     assert (k_tea[:, 0] > 0).sum() >= 1
+
+
+# ---- The tensor-core kernel's arithmetic (3xTF32) and indexing, on the CPU.
+
+def test_tf32_round():
+    """cvt.rna.tf32.f32: a 10-bit mantissa, round to nearest with ties away
+    from zero (held against a float64 rounding of the significand), and the
+    3xTF32 split hi + lo recovers x to 2^-21 relative."""
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal(20000) * 10.0 ** rng.uniform(-6, 6, 20000)
+         ).astype(np.float32)
+    ties = np.float32(1.0) + np.float32(2.0 ** -11) * np.array(
+        [1, 3, -1, -3], np.float32)                      # exact halfway cases
+    x = np.concatenate([x, ties, -ties, [0.0, 1.0, -2.5]]).astype(np.float32)
+    hi = tf32_round(torch.from_numpy(x))
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    m, e = np.frexp(x.astype(np.float64))
+    want = np.sign(m) * np.floor(np.abs(m) * 2.0 ** 11 + 0.5) * 2.0 ** (e - 11)
+    np.testing.assert_array_equal(hi.numpy().astype(np.float64), want)
+    lo = tf32_round(torch.from_numpy(x) - hi)
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    err = np.abs(hi.numpy().astype(np.float64) + lo.numpy() - x)
+    assert (err <= 2.0 ** -21 * np.abs(x)).all()
+
+
+def _fold_3xtf32(cap2, tpl, starts, n_comb_xc):
+    """The kernel's products emulated on the CPU (split, three float32
+    convolutions, |xc|^2, fold), as xcorr_fold returns it: (3, 9600, n_f)."""
+    fold = xcorr_fold_3xtf32_plain(cap2, tpl, starts, n_comb_xc)
+    return fold.view(tpl.shape[0], 3, 9600).permute(1, 2, 0)
+
+
+def test_3xtf32_matches_plain():
+    cap = _capture(seed=5)
+    fset = np.arange(-15, 16) * 5e3
+    plan = scan_plan(len(cap), fset, FC, FC, 1.92e6)
+    args = (_cap2(cap), torch.from_numpy(plan.tpl),
+            torch.from_numpy(plan.starts), plan.n_comb_xc)
+    want = xcorr_fold_plain(*args).view(31, 3, 9600).permute(1, 2, 0)
+    _close(_fold_3xtf32(*args).numpy().astype(np.float64),
+           want.numpy().astype(np.float64))
+
+
+def test_3xtf32_error_near_float32():
+    """Against a float64 reference, the split's products (the dropped
+    lo*lo term included) summed in float32 err no more than twice as much
+    as the plain float32 route: what the card's kernel adds beyond that
+    comes from its accumulation."""
+    cap = _capture(seed=5)
+    fset = np.arange(-15, 16) * 5e3
+    plan = scan_plan(len(cap), fset, FC, FC, 1.92e6)
+    cap2, tpl = _cap2(cap), torch.from_numpy(plan.tpl)
+    starts = torch.from_numpy(plan.starts)
+    ref = xcorr_fold_plain(cap2.double(), tpl.double(), starts,
+                           plan.n_comb_xc)
+    err_f32 = (xcorr_fold_plain(cap2, tpl, starts, plan.n_comb_xc).double()
+               - ref).abs().max()
+    err_split = (xcorr_fold_3xtf32_plain(cap2, tpl, starts, plan.n_comb_xc
+                                         ).double() - ref).abs().max()
+    assert 0 < err_f32 < 1e-5 * ref.abs().max()
+    assert err_split <= 2 * err_f32
+
+
+# The simulator captures of test_torch_cell_search.py::
+# test_cell_search_matches_jax.
+SIM_CAPTURES = [
+    (dict(n_id_1=90, n_id_2=1, cp_type="normal", snr_db=10,
+          freq_offset=7.7e3, n_rb_dl=50, sfn_start=64, seed=3),
+     np.arange(-3, 4) * 5e3),
+    (dict(n_id_1=0, n_id_2=0, cp_type="normal", snr_db=10,
+          freq_offset=-3.3e3, n_rb_dl=6, sfn_start=64, seed=3),
+     np.arange(-3, 4) * 5e3),
+    (dict(n_id_1=167, n_id_2=2, cp_type="extended", snr_db=10,
+          freq_offset=11e3, n_rb_dl=100, sfn_start=64, seed=3),
+     np.arange(-3, 4) * 5e3),
+    (dict(n_id_1=30, n_id_2=2, cp_type="extended", snr_db=20.0,
+          freq_offset=2e3, n_rb_dl=25, seed=3),
+     np.arange(-2, 3) * 5e3),
+]
+
+
+@pytest.mark.parametrize("kw,fset", SIM_CAPTURES)
+def test_3xtf32_peak_tables_match_plain(monkeypatch, kw, fset):
+    """The peak tables of the 3xTF32 route equal the plain route's: lag,
+    hypothesis and root exactly, powers within rtol 1e-5."""
+    from lte_cell_scanner_tpu_torch.io.simulator import synthetic_capture
+    from lte_cell_scanner_tpu_torch.ops.peak_torch import (
+        peak_search_device, r_th1_normalized)
+
+    cap = synthetic_capture(**kw)
+    plan = scan_plan(len(cap), fset, FC, FC, 1.92e6)
+    tables = []
+    for route in (xcorr_fold, _fold_3xtf32):
+        monkeypatch.setattr(xcorr_torch, "xcorr_fold", route)
+        packed, single, _ = xcorr_core(_cap2(cap), plan, 2)
+        tables.append(peak_search_device(
+            packed, single, r_th1_normalized(plan.n_comb_xc, 2), 2).numpy())
+    want, got = tables
+    assert (want[:, 0] > 0).sum() >= 1
+    np.testing.assert_array_equal(got[:, 1:], want[:, 1:])
+    np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=1e-5)
+
+
+def _kernel_mirror(cap2, tpl, starts, n_comb_xc):
+    """csrc/xcorr_fold.cu's formulation in torch: per fold and group of 8
+    hypotheses (padded with zero templates), base = min starts, d_f =
+    starts - base, W = 137 + max d_f rounded up to 4 taps; A[r][k] =
+    X[2r + k] over the interleaved capture span X[2s + p] = cap_p[base + s]
+    (0 outside the capture); B[2i + p][2c + q] the templates shifted by
+    d_f, (q, p) = (0, 0) tr, (0, 1) -ti, (1, 0) ti, (1, 1) tr, 0 unless
+    0 <= i - d_f < 137; C = A B, re = C[:, 2c], im = C[:, 2c + 1],
+    |xc|^2 added fold by fold. Returns (3 * n_f, 9600)."""
+    n_f, n_cap = tpl.shape[0], cap2.shape[1]
+    n_g = -(-n_f // 8)
+    tg = torch.zeros(8 * n_g, 3, 2, 137)
+    tg[:n_f] = tpl
+    tg = tg.view(n_g, 24, 2, 137)
+    n = torch.arange(48)
+    c, q = n // 2, n % 2
+    out = torch.zeros(24 * n_g, 9600)
+    for h in range(n_g):
+        acc = torch.zeros(9600, 24)
+        for m in range(n_comb_xc):
+            st = starts[8 * h:8 * h + 8, m].long()
+            base = int(st.min())
+            d = torch.zeros(8, dtype=torch.long)
+            d[:len(st)] = st - base
+            w = (137 + int(d.max()) + 3) // 4 * 4
+            s = base + torch.arange(9600 - 1 + w)
+            ok = (s >= 0) & (s < n_cap)
+            x = torch.zeros(2, len(s))
+            x[:, ok] = cap2[:, s[ok]]
+            a = x.T.reshape(-1).unfold(0, 2 * w, 2)       # (9600, 2W)
+            k = torch.arange(2 * w)
+            i, p = k // 2, k % 2
+            ii = i[:, None] - d[c // 3][None, :]
+            plane = p[:, None] ^ q[None, :]
+            val = tg[h][c[None, :].expand_as(ii), plane, ii.clamp(0, 136)]
+            sign = 1.0 - 2.0 * ((q[None, :] == 0) & (p[:, None] == 1))
+            b = torch.where((ii >= 0) & (ii < 137), sign * val, 0.0)
+            xc = a @ b                                     # (9600, 48)
+            acc += xc[:, 0::2] ** 2 + xc[:, 1::2] ** 2
+        out[24 * h:24 * h + 24] = (acc / n_comb_xc).T
+    return out[:3 * n_f]
+
+
+@pytest.mark.parametrize("n_cap,fset", [
+    (48000, np.arange(-15, 16) * 5e3),
+    (48000, np.arange(-8, 9) * 5e3),
+    (48000, np.array([0.0])),
+    (25000, np.arange(-120, 121) * 5e3),
+    # Unsorted: the groups' fold starts spread wider than the grid's.
+    (48000, np.random.default_rng(1).permutation(np.arange(-15, 16)) * 5e3),
+], ids=["31", "17", "1", "241", "31-unsorted"])
+def test_kernel_mirror_matches_plain(n_cap, fset):
+    cap = _capture(n=n_cap, seed=7)
+    plan = scan_plan(n_cap, fset, FC, FC, 1.92e6)
+    args = (_cap2(cap), torch.from_numpy(plan.tpl),
+            torch.from_numpy(plan.starts), plan.n_comb_xc)
+    _close(_kernel_mirror(*args).numpy().astype(np.float64),
+           xcorr_fold_plain(*args).numpy().astype(np.float64))
