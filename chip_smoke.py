@@ -14,13 +14,15 @@ if any fails:
    sources from csrc/ (one nvcc each, started together).
 2. Hold each kernel against its plain PyTorch version at the shapes of its
    path: the scan at 80 ms and the full 31-hypothesis grid (plus an
-   extreme +-600 kHz grid), in both modes (the tensor-core 3xTF32 kernel
-   and Karatsuba, the latter also against the former); the tensor-core
-   kernel also at 1 and 17 hypotheses, on the unsorted +-600 kHz grid, on
-   a capture of fewer than 15 folds and on bf16-rounded inputs (exact
-   products: rtol 1e-6), and its error at 31 hypotheses against a float64
-   reference beside the plain version's and the 3xTF32 emulation's, with
-   the peak table's margin to a tie; the symbol demod's MIB mode and the Viterbi
+   extreme +-600 kHz grid), in both layouts (the 2x2 kernel K1 and the
+   Karatsuba kernel K3, both 3xTF32 on the tensor cores, K3 also against
+   K1); both also at 1 and 17 hypotheses, on the unsorted +-600 kHz grid
+   and on a capture of fewer than 15 folds; K1 on bf16-rounded inputs
+   (exact products: rtol 1e-6) and K3's bf16 mode (one bf16 product per
+   tap) at 31 hypotheses; the error of each at 31 hypotheses against a
+   float64 reference beside the plain version's and the 3xTF32
+   emulation's, with K1's peak-table margin to a tie; the symbol demod's
+   MIB mode and the Viterbi
    decoder at the MIB batch of 64 candidates (25,216 windows, 768
    codewords); the symbol demod's stream mode and the Viterbi decoder on
    the inputs of a real tracker cycle at full width (96 cells x 300 ms of
@@ -34,8 +36,9 @@ if any fails:
    checked against the simulator's truth and the same search through the
    plain versions on the CPU; LTETracker on 400 blocks of a simulated cell
    (cell 271), checked against the same run on the CPU; both CLIs; the
-   tools path: bench_scan in the tea, roll and tea3 layouts on both
-   captures (tea3's peak table must equal tea's), bench_viterbi (bits equal
+   tools path: bench_scan in the tea, roll and tea3 layouts and in bf16
+   in tea and tea3 on both captures (each peak table must equal tea's in
+   the same precision), bench_viterbi (bits equal
    to the host decoder), bench_decode (the synced candidates, replicated
    to a batch of 64, decode as they do alone), bench_demod at the tracker
    path's median stream launch size, 1,050 and 403,200 windows,
@@ -44,7 +47,10 @@ if any fails:
    dB): 50/50 detections and MIB decodes at -10 dB, no false cell, and at
    least 36/50 at -12 dB.
 4. Time each kernel, its plain version and its library yardstick (K1:
-   F.conv1d; K4: torch.fft.fft and a dense f32 matmul, both partial) with
+   F.conv1d of the 2x2 blocks; K3: the grouped F.conv1d of its three real
+   correlations; K4: torch.fft.fft and a dense f32 matmul, both partial;
+   K1 and both K3 modes also at 241 hypotheses, in one call: the Karatsuba
+   trade) with
    CUDA events around single calls (3 warm-up calls, median of 20), and
    the end-to-end
    search on the host clock (median of 20); time the tracker's capacity run
@@ -72,6 +78,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores, FMA = 2
 PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 on the tensor cores
+PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 on the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 WARMUP, REPS = 3, 20
 FC = 739e6
@@ -95,8 +102,8 @@ WARM_CYCLES, TIMED_CYCLES, PROFILED_CYCLES = 2, 5, 1
 # Each path's kernels: a path's run must launch every one of them.
 SEARCH_KERNELS = ("xcorr_fold", "fd_demod", "viterbi")
 TRACKER_KERNELS = ("fd_demod_stream", "viterbi")
-TOOLS_KERNELS = ("xcorr_fold", "xcorr_fold3", "fd_demod", "fd_demod_stream",
-                 "viterbi")
+TOOLS_KERNELS = ("xcorr_fold", "xcorr_fold3", "xcorr_fold3_bf16", "fd_demod",
+                 "fd_demod_stream", "viterbi")
 # The Monte-Carlo floor of the JAX package's MC_r05.json: 50 trials per
 # point, ppm 10, seed 0; there 50/50 at -10 dB and 43/50 at -12 dB.
 MC_SNRS, MC_TRIALS, MC_REF = (-10.0, -12.0), 50, {-10.0: 50, -12.0: 43}
@@ -275,6 +282,44 @@ def scan_tc_flops(n_f: int, n_comb: int) -> float:
     products each (3xTF32). What the kernel runs beyond this (its groups'
     fold-start spread, a padded group's zero templates) is not counted."""
     return 3.0 * 3 * n_f * 9600 * n_comb * 137 * 8
+
+
+def scan3_tc_flops(n_f: int, n_comb: int, products: int) -> float:
+    """Flops of K3's function on the tensor cores: 3 n_f channels x 9600
+    lags x n_comb folds x 137 complex taps, three real MACs each (6
+    flops), times the products a real MAC takes (3 for 3xTF32, 1 in
+    bf16)."""
+    return 3.0 * n_f * 9600 * n_comb * 137 * 6 * products
+
+
+def k3_accuracy(xcorr_torch, cap3, tpl3, starts, n_comb):
+    """K3's (float32 mode) error on one scan against a float64 reference
+    of the same function (the plain version in float64 on the CPU),
+    beside the float32 plain version's (card and CPU) and the 3xTF32
+    emulation's (CPU). Prints them; returns the kernel's error."""
+    n_f = tpl3.shape[0]
+    c3, t3, st = cap3.cpu(), tpl3.cpu(), starts.cpu()
+
+    def as3(fold):
+        return fold.view(n_f, 3, -1).permute(1, 2, 0).double().cpu()
+
+    ref = as3(xcorr_torch.xcorr_fold3_plain(c3.double(), t3.double(), st,
+                                            n_comb))
+    routes = {
+        "kernel (card)": xcorr_torch.xcorr_fold3(cap3, tpl3, starts, n_comb
+                                                 ).double().cpu(),
+        "plain f32 (card)": as3(xcorr_torch.xcorr_fold3_plain(
+            cap3, tpl3, starts, n_comb)),
+        "plain f32 (CPU)": as3(xcorr_torch.xcorr_fold3_plain(c3, t3, st,
+                                                             n_comb)),
+        "3xTF32 emulation (CPU)": as3(xcorr_torch.xcorr_fold3_3xtf32_plain(
+            c3, t3, st, n_comb)),
+    }
+    errs = {k: float((v - ref).abs().max()) for k, v in routes.items()}
+    print(f"K3 max abs error against float64 (max |ref| "
+          f"{float(ref.abs().max()):.4e}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    return errs["kernel (card)"]
 
 
 def k1_accuracy(xcorr_torch, cap2, plan, single, packed, table, ds):
@@ -465,17 +510,25 @@ def tools_path(caps, demod_sizes) -> dict:
     for cp, cap in caps.items():
         paths[cp] = os.path.join(cap_dir, f"capbuf_{cp}.it")
         save_it(paths[cp], {"capbuf": cap, "fc": np.array([FC])})
-        scans = {layout: bench_scan.main(["--layout", layout, "--iters", "20",
-                                          "--capture", paths[cp]])
-                 for layout in ("tea", "roll", "tea3")}
-        ref = np.array(scans["tea"]["peaks"])
-        for layout in ("roll", "tea3"):
-            got = np.array(scans[layout]["peaks"])
+        scans = {(layout, prec): bench_scan.main([
+            "--layout", layout, "--precision", prec, "--iters", "20",
+            "--capture", paths[cp]])
+            for layout, prec in (("tea", "f32"), ("roll", "f32"),
+                                 ("tea3", "f32"), ("tea", "bf16"),
+                                 ("tea3", "bf16"))}
+        # In bf16 the two layouts round different planes (tea3 rounds the
+        # sum re+im as a plane of its own, as the JAX package does), so
+        # their powers agree to bf16's precision (2^-8), not float32's.
+        for (layout, prec), rtol in ((("roll", "f32"), 1e-5),
+                                     (("tea3", "f32"), 1e-5),
+                                     (("tea3", "bf16"), 1e-2)):
+            ref = np.array(scans[("tea", prec)]["peaks"])
+            got = np.array(scans[(layout, prec)]["peaks"])
             check(np.array_equal(got[:, 1:], ref[:, 1:])
-                  and np.allclose(got[:, 0], ref[:, 0], rtol=1e-5, atol=0),
-                  f"bench_scan {cp} CP: the {layout} peak table equals "
-                  f"tea's ({int((ref[:, 0] > 0).sum())} peaks; lag, "
-                  "hypothesis and root exact, power within rtol 1e-5)")
+                  and np.allclose(got[:, 0], ref[:, 0], rtol=rtol, atol=0),
+                  f"bench_scan {cp} CP {prec}: the {layout} peak table "
+                  f"equals tea's ({int((ref[:, 0] > 0).sum())} peaks; lag, "
+                  f"hypothesis and root exact, power within rtol {rtol:g})")
         out[f"scan_{cp}"] = scans
     try:
         vit = bench_viterbi.main(["--batch", "768", "--iters", "20"])
@@ -611,50 +664,68 @@ def main() -> int:
         return got, close(got, want, f"xcorr_fold {what} n_f={len(fset)} "
                           f"n_comb={plan.n_comb_xc}", rtol)
 
-    cap3 = xcorr_torch.karatsuba_planes(cap2)
+    def fold3_inputs(n, fset, precision="f32"):
+        """K3's inputs as xcorr_core hands them, for the first n samples."""
+        plan = xcorr_torch.scan_plan(n, fset, FC, FC, 1.92e6, layout="tea3",
+                                     precision=precision)
+        return (plan, *xcorr_torch.karatsuba_inputs(
+            cap2[:, :n].contiguous(), torch.from_numpy(plan.tpl).to(dev),
+            precision), torch.from_numpy(plan.starts).to(dev))
+
+    def fold3_vs_plain(n, fset, what, precision="f32"):
+        plan, c3, tpl3, starts = fold3_inputs(n, fset, precision)
+        got = xcorr_torch.xcorr_fold3(c3, tpl3, starts, plan.n_comb_xc)
+        want = xcorr_torch.xcorr_fold3_plain(c3, tpl3, starts, plan.n_comb_xc
+                                             ).view(len(fset), 3, -1
+                                                    ).permute(1, 2, 0)
+        torch.cuda.synchronize()
+        name = "xcorr_fold3_bf16" if precision == "bf16" else "xcorr_fold3"
+        return got, close(got, want, f"{name} {what} n_f={len(fset)} "
+                          f"n_comb={plan.n_comb_xc}")
+
     scan_err, scan3_err = {}, {}
     for label, fset in (("31-hyp", fset31),
                         ("241-hyp", np.arange(-120, 121) * 5e3)):
-        plan, tpl, starts = scan_inputs(fset)
         got, scan_err[label] = fold_vs_plain(cap2, fset, label)
         # The Karatsuba kernel: against its plain version, and against the
-        # tensor-core kernel at the JAX package's tea3-vs-roll tolerance
-        # (the same bound: tests/test_xcorr_pallas.py).
-        tpl3 = torch.from_numpy(xcorr_torch.scan_plan(
-            n_cap, fset, FC, FC, 1.92e6, layout="tea3").tpl).to(dev)
-        got3 = xcorr_torch.xcorr_fold3(cap3, tpl3, starts, plan.n_comb_xc)
-        want3 = xcorr_torch.xcorr_fold3_plain(cap3, tpl3, starts,
-                                              plan.n_comb_xc
-                                              ).view(len(fset), 3, -1
-                                                     ).permute(1, 2, 0)
-        torch.cuda.synchronize()
-        scan3_err[label] = close(got3, want3, f"xcorr_fold3 {label}")
+        # 2x2 kernel at the JAX package's tea3-vs-roll tolerance (the same
+        # bound: tests/test_xcorr_pallas.py).
+        got3, scan3_err[label] = fold3_vs_plain(n_cap, fset, label)
         close(got3, got, f"xcorr_fold3 {label} vs the xcorr_fold kernel")
-        del got, got3, want3
-    # The tensor-core kernel's other shapes: cell_search's default grid
-    # (one hypothesis), a group padded from 17, an unsorted grid (wide fold
+        del got, got3
+    # K3's bf16 mode: one bf16 product per tap on the bf16-rounded planes
+    # and bank, exact products summed in float32.
+    _, scan3_err["bf16"] = fold3_vs_plain(n_cap, fset31, "31-hyp", "bf16")
+    # Both kernels' other shapes: cell_search's default grid (one
+    # hypothesis), a group padded from 17, an unsorted grid (wide fold
     # spreads within a group: the span is staged in several passes), a
-    # capture of 6 folds, and bf16-rounded inputs, where lo = 0 and the
-    # products are exact (the sums still run in another order).
-    for what, c2, fset, kw in (
-            ("1-hyp", cap2, np.array([0.0]), {}),
-            ("17-hyp", cap2, np.arange(-8, 9) * 5e3, {}),
-            ("241-hyp unsorted", cap2, np.random.default_rng(1).permutation(
+    # capture of 6 folds; and K1 on bf16-rounded inputs, where lo = 0 and
+    # the products are exact (the sums still run in another order).
+    for what, n, fset, kw in (
+            ("1-hyp", n_cap, np.array([0.0]), {}),
+            ("17-hyp", n_cap, np.arange(-8, 9) * 5e3, {}),
+            ("241-hyp unsorted", n_cap, np.random.default_rng(1).permutation(
                 np.arange(-120, 121)) * 5e3, {}),
-            ("short capture", cap2[:, :60000].contiguous(), fset31, {}),
-            ("bf16-rounded", xcorr_torch.round_bf16(cap2), fset31,
+            ("short capture", 60000, fset31, {}),
+            ("bf16-rounded", n_cap, fset31,
              dict(rtol=1e-6, precision="bf16"))):
+        c2 = cap2[:, :n].contiguous()
+        if kw:
+            c2 = xcorr_torch.round_bf16(c2)
+        else:
+            fold3_vs_plain(n, fset, what)
         fold_vs_plain(c2, fset, what, **kw)
 
     # The MIB batch of 64 candidates: the capture's detected cell at 64
     # timings and frequencies around it.
     plan31, tpl31, starts31 = scan_inputs(fset31)
-    tpl31_3 = torch.from_numpy(xcorr_torch.scan_plan(
-        n_cap, fset31, FC, FC, 1.92e6, layout="tea3").tpl).to(dev)
+    _, cap3, tpl31_3, _ = fold3_inputs(n_cap, fset31)
+    _, cap3_bf, tpl31_3bf, _ = fold3_inputs(n_cap, fset31, "bf16")
     packed, single, _ = xcorr_torch.xcorr_core(cap2, plan31, 2)
     table = peak_search_device(packed, single,
                                r_th1_normalized(plan31.n_comb_xc, 2), 2)
     k1_accuracy(xcorr_torch, cap2, plan31, single, packed, table, 2)
+    k3_accuracy(xcorr_torch, cap3, tpl31_3, starts31, plan31.n_comb_xc)
     peaks = peaks_to_cells(table.cpu().numpy(), fset31, FC, FC)
     synced = [c for c in sss_foe_batch(peaks, cap_ri, 3.0)
               if c.n_id_1 >= 0 and c.cp_type == "normal"]
@@ -790,6 +861,8 @@ def main() -> int:
               cap2, tpl31_3, starts31, plan31.n_comb_xc))
           and refuses(lambda: xcorr_torch.xcorr_fold3(
               cap3, tpl31, starts31, plan31.n_comb_xc))
+          and refuses(lambda: xcorr_torch.xcorr_fold3(
+              cap3, tpl31_3bf, starts31, plan31.n_comb_xc))
           and refuses(lambda: fd_demod(cap_ri, demod_args[0][::2],
                                        *demod_args[1:]))
           and refuses(lambda: fd_demod(cap_ri, *demod_args[:4],
@@ -900,26 +973,58 @@ def main() -> int:
         cap2, tpl31, starts31, plan31.n_comb_xc))
     t_scan_plain = cuda_ms(lambda: xcorr_torch.xcorr_fold_plain(
         cap2, tpl31, starts31, plan31.n_comb_xc))
-    plan241, tpl241, starts241 = scan_inputs(np.arange(-120, 121) * 5e3)
-    t_scan241 = cuda_ms(lambda: xcorr_torch.xcorr_fold(
-        cap2, tpl241, starts241, plan241.n_comb_xc))
-    b241 = scan_tc_flops(241, plan241.n_comb_xc) / PEAK_TF32_FLOPS * 1e3
-    print(f"xcorr_fold at 241 hypotheses: {t_scan241:.4f} ms (tensor-core "
-          f"bound {b241:.4f} ms)")
+    # The Karatsuba trade: K1 and both K3 modes at 31 and 241 hypotheses,
+    # in turns in this call.
+    fset241 = np.arange(-120, 121) * 5e3
+    plan241, tpl241, starts241 = scan_inputs(fset241)
+    _, _, tpl241_3, _ = fold3_inputs(n_cap, fset241)
+    _, _, tpl241_3bf, _ = fold3_inputs(n_cap, fset241, "bf16")
+    trade = {}
+    for n_f, args1, args3, args3bf in (
+            (31, (cap2, tpl31, starts31, plan31.n_comb_xc),
+             (cap3, tpl31_3, starts31, plan31.n_comb_xc),
+             (cap3_bf, tpl31_3bf, starts31, plan31.n_comb_xc)),
+            (241, (cap2, tpl241, starts241, plan241.n_comb_xc),
+             (cap3, tpl241_3, starts241, plan241.n_comb_xc),
+             (cap3_bf, tpl241_3bf, starts241, plan241.n_comb_xc))):
+        n_comb = args1[3]
+        trade[n_f] = {
+            "K1": (cuda_ms(lambda: xcorr_torch.xcorr_fold(*args1)),
+                   scan_tc_flops(n_f, n_comb) / PEAK_TF32_FLOPS * 1e3),
+            "K3 f32": (cuda_ms(lambda: xcorr_torch.xcorr_fold3(*args3)),
+                       scan3_tc_flops(n_f, n_comb, 3) / PEAK_TF32_FLOPS
+                       * 1e3),
+            "K3 bf16": (cuda_ms(lambda: xcorr_torch.xcorr_fold3(*args3bf)),
+                        scan3_tc_flops(n_f, n_comb, 1) / PEAK_BF16_FLOPS
+                        * 1e3)}
+        print(f"scan kernels at {n_f} hypotheses (CUDA events, median of "
+              f"{REPS}; tensor-core bound of the function): " + ", ".join(
+                  f"{k} {t:.4f} ms (bound {b:.4f} ms, {100 * b / t:.1f}%)"
+                  for k, (t, b) in trade[n_f].items()))
+    t_scan3, t_scan3_bf = trade[31]["K3 f32"][0], trade[31]["K3 bf16"][0]
     g_dev, g_launch = guard_us(dev)
     print(f"device guard per launch (host): torch.cuda.device {g_dev:.3f} "
           f"us, launch_device {g_launch:.3f} us")
-    del tpl241, starts241
+    del tpl241, starts241, tpl241_3, tpl241_3bf
     n_ch = 3 * len(fset31)
     w_re = tpl31[:, :, 0].reshape(n_ch, -1)
     w_im = tpl31[:, :, 1].reshape(n_ch, -1)
     weight = torch.cat([torch.stack([w_re, -w_im], 1),
                         torch.stack([w_im, w_re], 1)], 0)
     t_conv = cuda_ms(lambda: torch.nn.functional.conv1d(cap2[None], weight))
-    t_scan3 = cuda_ms(lambda: xcorr_torch.xcorr_fold3(
-        cap3, tpl31_3, starts31, plan31.n_comb_xc))
     t_scan3_plain = cuda_ms(lambda: xcorr_torch.xcorr_fold3_plain(
         cap3, tpl31_3, starts31, plan31.n_comb_xc))
+    t_scan3_bf_plain = cuda_ms(lambda: xcorr_torch.xcorr_fold3_plain(
+        cap3_bf, tpl31_3bf, starts31, plan31.n_comb_xc))
+    # K3's yardstick: its three real correlations as one grouped
+    # convolution (plane p of the capture against plane p of the bank),
+    # in the mode's dtype; no recombination and no fold.
+    t_conv3 = {}
+    for mode, (c3, t3) in (("f32", (cap3, tpl31_3)),
+                           ("bf16", (cap3_bf, tpl31_3bf))):
+        w3 = t3.reshape(n_ch, 3, -1).transpose(0, 1).reshape(3 * n_ch, 1, -1)
+        t_conv3[mode] = cuda_ms(lambda: torch.nn.functional.conv1d(
+            c3[None], w3, groups=3))
     t_fd = cuda_ms(lambda: fd_demod(cap_ri, *demod_args))
     t_fd_plain = cuda_ms(lambda: fd_demod_plain(cap_ri, *demod_args))
     t_vit = cuda_ms(lambda: viterbi.viterbi_tl(llr_tl))
@@ -998,11 +1103,20 @@ def main() -> int:
     # The same function's f32 FMA count on the CUDA cores (the bound of a
     # CUDA-core kernel).
     scan_fma_b = bound(n_ch * 9600 * n_comb * (137 * 8 + 3), scan_bytes)
-    # Karatsuba: three FMAs per tap, then re = k1 - k2, im = k3 - k1 - k2
-    # and |xc|^2 accumulated (7 flops); the capture sum a+b is an input.
-    scan3_b = bound(n_ch * 9600 * n_comb * (137 * 6 + 7),
-                    4 * (3 * n_cap + n_ch * 3 * 137 + n_f * n_comb
-                         + n_ch * 9600))
+    # K3: three real products per complex tap, three TF32 products each
+    # in the float32 mode, one bf16 product in the bf16 mode. Its old bound
+    # on the CUDA cores: three FMAs per tap, then re = k1 - k2,
+    # im = k3 - k1 - k2 and |xc|^2 accumulated (7 flops); the capture sum
+    # a+b is an input.
+    def scan3_bytes(size):
+        return (size * (3 * n_cap + n_ch * 3 * 137)
+                + 4 * (n_f * n_comb + n_ch * 9600))
+
+    scan3_b = bound(scan3_tc_flops(n_f, n_comb, 3), scan3_bytes(4),
+                    PEAK_TF32_FLOPS)
+    scan3_bf_b = bound(scan3_tc_flops(n_f, n_comb, 1), scan3_bytes(2),
+                       PEAK_BF16_FLOPS)
+    scan3_fma_b = bound(n_ch * 9600 * n_comb * (137 * 6 + 7), scan3_bytes(4))
     # K4: the FFT's flops, the pre-rotation (phase and complex product, 8
     # per sample, plus 4 for the u8 conversion) and per bin the shift
     # factor and the post-rotation (16); bins (72 i32) as the table.
@@ -1042,7 +1156,17 @@ def main() -> int:
              launches=tools_launches["xcorr_fold3"],
              max_abs_err=scan3_err["31-hyp"], ms=t_scan3,
              plain_ms=t_scan3_plain, bound_ms=scan3_b[0],
-             bound_by=scan3_b[1], library_ms=t_conv),
+             bound_by=scan3_b[1], library_ms=t_conv3["f32"],
+             fma_bound_ms=scan3_fma_b[0]),
+        dict(name="xcorr_fold3_bf16", route="cuda",
+             source="lte_cell_scanner_tpu_torch/csrc/xcorr_fold.cu",
+             replaces="lte_cell_scanner_tpu/ops/xcorr_pallas.py:174 (K3, "
+                      "bf16 mode)",
+             launches=tools_launches["xcorr_fold3_bf16"],
+             max_abs_err=scan3_err["bf16"], ms=t_scan3_bf,
+             plain_ms=t_scan3_bf_plain, bound_ms=scan3_bf_b[0],
+             bound_by=scan3_bf_b[1], library_ms=t_conv3["bf16"],
+             fma_bound_ms=scan3_fma_b[0]),
         dict(name="fd_demod", route="cuda",
              source="lte_cell_scanner_tpu_torch/csrc/fd_demod.cu",
              replaces="lte_cell_scanner_tpu/ops/fd_demod_pallas.py:58 (K4)",
@@ -1069,7 +1193,9 @@ def main() -> int:
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']}"
               + (f"; f32 FMA bound {r['fma_bound_ms']:.4f} ms"
-                 if "fma_bound_ms" in r else "") + ")")
+                 if "fma_bound_ms" in r else "")
+              + (f"; library {r['library_ms']:.4f} ms"
+                 if r["library_ms"] is not None else "") + ")")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -33,14 +33,21 @@
 //   the split keeps the error near float32's (against a float64
 //   reference: PERF.md), and the products are exact for bf16-rounded
 //   inputs (lo = 0).
-// - K3 (launcher xcorr_fold3_launch): CUDA cores, three real products per
-//   tap, k1 = sum tr*a, k2 = sum ti*b, k3 = sum (tr+ti)*(a+b), then
-//   re = k1 - k2, im = (k3 - k1) - k2, the recombination order of the TPU
-//   kernel. The template sum tr+ti is a third template plane and the
-//   capture sum a+b a third capture plane, both formed by the caller, so
-//   the bf16 mode can round each at the TPU kernel's rounding points.
+// - K3 (launchers xcorr_fold3_launch, float32, and
+//   xcorr_fold3_bf16_launch, bfloat16): tensor cores, Karatsuba: three
+//   real products per tap, k1 = sum tr*a, k2 = sum ti*b, k3 = sum
+//   (tr+ti)*(a+b), then re = k1 - k2, im = (k3 - k1) - k2, the
+//   recombination order of the TPU kernel. The template sum tr+ti is a
+//   third template plane and the capture sum a+b a third capture plane,
+//   both formed by the caller, so the bf16 mode can round each at the TPU
+//   kernel's rounding points. The same base, d_f and passes as K1, over
+//   groups of 16 channels, with one product per plane and no signs; the
+//   templates are the A operand and the capture the Toeplitz B (details
+//   above the kernel). The float32 mode runs 3xTF32 m16n8k8 (W rounded
+//   up to 8 taps); the bfloat16 mode one bf16 m16n8k16 product with
+//   float32 sums (W rounded up to 16), exact for bf16 inputs.
 //
-// Bound on the H100: operations. The function is 3 n_f x 9600 x n_comb x
+// K1 bound on the H100: operations. The function is 3 n_f x 9600 x n_comb x
 // 137 complex MACs: at full width (n_f = 31, n_comb = 15) 14.7 GFLOP, three
 // TF32 products each, 44.0 GFLOP, ~0.089 ms at 495 TFLOP/s dense TF32 (the
 // same function on the CUDA cores: ~0.22 ms of f32 FMA at 67 TFLOP/s). The
@@ -69,10 +76,13 @@
 //   products measured no better on the card, so the block stages in turn.
 // - Each output is written once: no atomics, a deterministic result.
 //
-// K3 bound: 3/4 of the f32 FMA count (~0.17 ms). One block owns a 512-lag
-// tile of one hypothesis; its three templates sit in shared memory and are
-// read as warp broadcasts; for each fold the block stages the span it needs
-// and every thread correlates four lags (stride 128, conflict-free).
+// K3 bound: the function's 93 channels x 9600 lags x 15 folds x 137
+// complex taps take three real MACs each, 11.0 GFLOP at full width: in
+// float32 three TF32 products each, 33.0 GFLOP, ~0.067 ms at 495 TFLOP/s;
+// in bf16 one product, ~0.011 ms at 989 TFLOP/s (the f32 FMA bound of the
+// CUDA cores: ~0.17 ms). At 241 hypotheses K1 and K3 run their TF32
+// `mma.sync` work at about 40% of the dense rate, as every build tried did
+// (PERF.md); `wgmma` would be the next step.
 
 #include <cuda_runtime.h>
 
@@ -124,6 +134,32 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Warp 0's plan of fold m for the nf hypotheses of the group at f0:
+// base = min_f starts[f, m], d_f = starts[f, m] - base (0 for a padded
+// hypothesis) and W = 137 + max d_f taps rounded up to `align`.
+__device__ __forceinline__ void plan_fold(const int* __restrict__ starts,
+                                          int f0, int nf, int n_comb, int m,
+                                          int align, int lane, int* s_d,
+                                          int* s_base, int* s_w)
+{
+    const int s = lane < nf ? starts[(size_t)(f0 + lane) * n_comb + m]
+                            : INT_MAX;
+    int lo = s;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+        lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    const int d = lane < nf ? s - lo : 0;
+    int hi = d;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+        hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    if (lane < kGroup) s_d[lane] = d;
+    if (lane == 0) {
+        *s_base = lo;
+        *s_w = (kTaps + hi + align - 1) & -align;
+    }
+}
+
 // cap (2, n_cap) re/im; tpl (n_f, 3, 2, 137); starts (n_f, n_comb);
 // out (n_f * 3, 9600). Grid (9600 / kLagTile, ceil(n_f / 8)): block (x, y)
 // owns lags [x kLagTile, +kLagTile) of the 8 hypotheses (24 channels) of
@@ -173,24 +209,8 @@ xcorr_fold_tc_kernel(const float* __restrict__ cap, int n_cap,
 
     for (int m = 0; m < n_comb; ++m) {
         __syncthreads();   // the previous fold's readers are done
-        if (warp == 0) {
-            const int s = lane < nf ? starts[(size_t)(f0 + lane) * n_comb + m]
-                                    : INT_MAX;
-            int lo = s;
-#pragma unroll
-            for (int o = 16; o > 0; o >>= 1)
-                lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-            const int d = lane < nf ? s - lo : 0;
-            int hi = d;
-#pragma unroll
-            for (int o = 16; o > 0; o >>= 1)
-                hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-            if (lane < kGroup) s_d[lane] = d;
-            if (lane == 0) {
-                s_base = lo;
-                s_w = (kTaps + hi + 3) & ~3;
-            }
-        }
+        if (warp == 0)
+            plan_fold(starts, f0, nf, n_comb, m, 4, lane, s_d, &s_base, &s_w);
         __syncthreads();
         const int base = s_base + lag0;
         const int w = s_w;
@@ -296,104 +316,300 @@ xcorr_fold_tc_kernel(const float* __restrict__ cap, int n_cap,
     }
 }
 
-// ---- K3: CUDA cores, Karatsuba.
+// ---- K3: tensor cores, Karatsuba, in two modes.
+//
+// M = channels, N = lags: per fold and plane p (a, b, a+b of the capture
+// against tr, ti, tr+ti of the templates), M_p = T_p X_p with
+//   T_p[c][k] = tpl_p[c][k - d_f(c)], 0 unless 0 <= k - d_f < 137,
+//   X_p[k][l] = x_p[base + lag0 + l + k]                  (Toeplitz)
+// so that the capture is the B operand. A B fragment is a register pair
+// (b0, b1) = (X[k0 + t][n], X[k0 + t + 4][n]) in TF32, (X[k0 + 2t, +1][n],
+// X[k0 + 2t + 8, +9][n]) in bf16, and n-tile j at k-step k + 1 reads the
+// very pair that n-tile j + 1 (TF32) or j + 2 (bf16) read at k-step k.
+// The span is staged as pair words Y[s] = (x[s], x[s + 4]) (TF32, hi and
+// lo) or Q[s] = ((x[s], x[s+1]), (x[s+8], x[s+9])) (bf16), so a warp
+// keeps its n-tiles' pairs in a ring of registers that turns with the
+// unrolled k-steps: one (TF32) or two (bf16) 64-bit loads per k-step and
+// plane bring the pairs that enter, and no pair is moved. (With the
+// capture as the A operand instead, as in K1, consecutive k-steps share
+// values at other places of the fragment, and ptxas spent a move per
+// value to assemble each A quad; that build ran slower on the card, most
+// at 241 hypotheses.) In bf16 a pair word also answers the alignment of
+// a bf16 fragment register, which holds two neighbouring taps that start
+// at an odd sample for half the lags: no 32-bit load of the plane could
+// fetch it.
+//
+// The A fragment (templates, one row per channel) is four predicated
+// loads a k-step from the templates in shared memory, split in registers
+// in TF32; in bf16 the template rows are kept as pair words (word i + 1 =
+// taps i, i + 1), so that each A register is one load. (A table of the
+// fragments, built once per pass by the block for its four warps, made
+// the bf16 mode slower on the card: the build costs more than the loads
+// it saves.)
+//
+// A block owns 16 channels (one m-tile; the 3 n_f channels are cut into
+// groups of 16, the last padded with zero templates) x 160 lags: 4 warps,
+// each 5 n-tiles of 8 lags. Per fold, base = min starts over the
+// hypotheses of its channels (at most 6) and d_f = starts - base. The
+// three accumulators m1, m2, m3 of an output fragment sit at the same
+// tile position, so one thread forms re = m1 - m2, im = (m3 - m1) - m2
+// and adds re^2 + im^2 to the fold sum in registers: 80 accumulator
+// floats a thread.
 
-constexpr int kThreads = 128;
-constexpr int kLagsPerThread = 4;
-constexpr int kTile = kThreads * kLagsPerThread;   // 512 lags per block
-constexpr int kKSpan = kTile + kTaps - 1;          // capture samples per fold
-constexpr int kPlanes = 3;
+constexpr int k3Rows = 16;                     // channels per block
+constexpr int k3NT = 5;                        // n-tiles (8 lags) per warp
+constexpr int k3Warps = 4;                     // warps along the lags
+constexpr int k3Threads = 32 * k3Warps;
+constexpr int k3LagTile = 8 * k3NT * k3Warps;  // lags per block
+constexpr int k3Span = k3LagTile + kChunk;     // pair words staged per pass
+constexpr int k3Row = 140;                     // template row stride
+constexpr int k3Tpl = k3Rows * 3 * k3Row;      // [channel][plane][tap]
+static_assert(kHalfFrame % k3LagTile == 0 && kChunk % 16 == 0, "");
 
-// cap: 3 planes of n_cap samples (re, im, re+im);
-// tpl: (n_f, 3, 3, 137) with the same planes.
-__global__ void __launch_bounds__(kThreads)
-xcorr_fold3_kernel(const float* __restrict__ cap, int n_cap,
-                   const float* __restrict__ tpl,
-                   const int* __restrict__ starts,    // (n_f, n_comb)
-                   int n_comb, float* __restrict__ out)  // (n_f * 3, 9600)
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1)
 {
-    __shared__ float t[kPlanes][3][kTaps];
-    __shared__ float x[kPlanes][kKSpan];
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-    const int f = blockIdx.y;
-    const int lag0 = blockIdx.x * kTile;
+// One plane of a staged pass in TF32, 3xTF32 products: nks k-steps of 8
+// taps. yh, yl: the hi and lo pair words at this lane's first B pair
+// (lag 40 warp + g, tap t); t0, t1: the plane's template rows g and g + 8,
+// i0, i1 their first A taps (t - d_f of the row, from the pass start).
+__device__ __forceinline__ void plane_tf32(const uint2* yh, const uint2* yl,
+                                           const float* t0, const float* t1,
+                                           int i0, int i1, int nks,
+                                           float (&c)[k3NT][4])
+{
+    // n-tile j at k-step k reads pair v = j + k, kept at slot v % k3NT.
+    uint2 rh[k3NT], rl[k3NT];
+#pragma unroll
+    for (int j = 0; j < k3NT; ++j) {
+        rh[j] = yh[8 * j];
+        rl[j] = yl[8 * j];
+    }
+    for (int ks = 0; ks < nks; ks += k3NT) {
+#pragma unroll
+        for (int u = 0; u < k3NT; ++u) {
+            const int k = ks + u;
+            if (k >= nks) break;
+            const int a = i0 + 8 * k, b = i1 + 8 * k;
+            const float v[4] = {
+                (unsigned)a < (unsigned)kTaps ? t0[a] : 0.f,
+                (unsigned)b < (unsigned)kTaps ? t1[b] : 0.f,
+                (unsigned)(a + 4) < (unsigned)kTaps ? t0[a + 4] : 0.f,
+                (unsigned)(b + 4) < (unsigned)kTaps ? t1[b + 4] : 0.f};
+            uint32_t ah[4], al[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) split_tf32(v[e], ah[e], al[e]);
+            // Small terms first, as K1 sums them.
+#pragma unroll
+            for (int j = 0; j < k3NT; ++j)
+                mma_tf32(c[j], al, rh[(u + j) % k3NT].x,
+                         rh[(u + j) % k3NT].y);
+#pragma unroll
+            for (int j = 0; j < k3NT; ++j)
+                mma_tf32(c[j], ah, rl[(u + j) % k3NT].x,
+                         rl[(u + j) % k3NT].y);
+#pragma unroll
+            for (int j = 0; j < k3NT; ++j)
+                mma_tf32(c[j], ah, rh[(u + j) % k3NT].x,
+                         rh[(u + j) % k3NT].y);
+            if (k + 1 < nks) {   // the pair that enters at k-step k + 1
+                rh[u] = yh[8 * (k + k3NT)];
+                rl[u] = yl[8 * (k + k3NT)];
+            }
+        }
+    }
+}
+
+// One plane of a staged pass in bf16: nks k-steps of 16 taps. q: the
+// pair words at this lane's first B pair (lag 40 warp + g, tap 2t); t0, t1:
+// the plane's template pair-word rows g and g + 8 (word i + 1 holds taps
+// i, i + 1), i0, i1 their first A taps (2t - d_f of the row).
+__device__ __forceinline__ void plane_bf16(const uint2* q,
+                                           const uint32_t* t0,
+                                           const uint32_t* t1, int i0,
+                                           int i1, int nks,
+                                           float (&c)[k3NT][4])
+{
+    // n-tile j at k-step k reads pair v = j + 2k, kept at slot v % S; S is
+    // even and above k3NT, so the ring turns every S / 2 k-steps.
+    constexpr int S = k3NT + 1 + (k3NT & 1 ? 0 : 1);
+    uint2 r[S];
+#pragma unroll
+    for (int j = 0; j < k3NT; ++j) r[j] = q[8 * j];
+    for (int ks = 0; ks < nks; ks += S / 2) {
+#pragma unroll
+        for (int u = 0; u < S / 2; ++u) {
+            const int k = ks + u;
+            if (k >= nks) break;
+            const int a = i0 + 16 * k + 1, b = i1 + 16 * k + 1;
+            constexpr unsigned kW = kTaps + 1;   // words -1 .. 136
+            const uint32_t av[4] = {
+                (unsigned)a < kW ? t0[a] : 0u,
+                (unsigned)b < kW ? t1[b] : 0u,
+                (unsigned)(a + 8) < kW ? t0[a + 8] : 0u,
+                (unsigned)(b + 8) < kW ? t1[b + 8] : 0u};
+#pragma unroll
+            for (int j = 0; j < k3NT; ++j)
+                mma_bf16(c[j], av, r[(2 * u + j) % S].x,
+                         r[(2 * u + j) % S].y);
+            if (k + 1 < nks) {   // the two pairs that enter at k + 1
+                const int v = 2 * k + k3NT;
+                r[(2 * u + k3NT) % S] = q[8 * v];
+                r[(2 * u + k3NT + 1) % S] = q[8 * (v + 1)];
+            }
+        }
+    }
+}
+
+// Both modes: cap (3, n_cap) planes a, b, a+b; tpl (n_f, 3, 3, 137) planes
+// tr, ti, tr+ti; starts (n_f, n_comb); out (n_f * 3, 9600). T = float
+// (f32 mode, 3xTF32) or uint16_t (bf16 bits, one bf16 product). Grid
+// (9600 / k3LagTile, ceil(3 n_f / 16)).
+template <typename T>
+__global__ void __launch_bounds__(k3Threads)
+xcorr_fold3_tc_kernel(const T* __restrict__ cap, int n_cap,
+                      const T* __restrict__ tpl,
+                      const int* __restrict__ starts, int n_f, int n_comb,
+                      float* __restrict__ out)
+{
+    constexpr bool kBf16 = sizeof(T) == 2;
+    // Templates: float32 taps, or bf16 pair words (word i + 1 = taps i,
+    // i + 1, zero outside the 137 taps).
+    __shared__ uint32_t ts[k3Tpl];
+    // The span: f32 hi and lo pair words Y, or bf16 Q.
+    __shared__ uint2 xs[kBf16 ? 1 : 2][3][k3Span];
+    __shared__ int s_d[kGroup];
+    __shared__ int s_base, s_w;
+
     const int tid = threadIdx.x;
+    const int lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const int lag0 = blockIdx.x * k3LagTile;
+    const int c0 = blockIdx.y * k3Rows;
+    const int n_ch = min(k3Rows, 3 * n_f - c0);   // the block's channels
+    const int h0 = c0 / 3;                        // and their hypotheses
+    const int nh = (c0 + n_ch - 1) / 3 - h0 + 1;
 
-    const float* tp = tpl + (size_t)f * 3 * kPlanes * kTaps;
-    for (int i = tid; i < 3 * kPlanes * kTaps; i += kThreads) {
-        const int c = i / (kPlanes * kTaps);
-        const int p = (i / kTaps) % kPlanes;
-        t[p][c][i % kTaps] = tp[i];
+    for (int i = tid; i < k3Tpl; i += k3Threads) {
+        const int row = i / k3Row, j = i % k3Row;   // row = 3 channel + plane
+        const T* tr = tpl + (size_t)(3 * c0 + row) * kTaps;
+        const bool in = row < 3 * n_ch;
+        if constexpr (kBf16) {
+            const uint32_t lo = in && (unsigned)(j - 1) < (unsigned)kTaps
+                                    ? tr[j - 1] : 0u;
+            const uint32_t hi = in && j < kTaps ? tr[j] : 0u;
+            ts[i] = lo | (hi << 16);
+        } else {
+            ts[i] = __float_as_uint(in && j < kTaps ? tr[j] : 0.f);
+        }
     }
 
-    float acc[3][kLagsPerThread];
+    const int lane_s = 8 * k3NT * warp + g + (kBf16 ? 2 * t : t);
+    const int hyp0 = (c0 + g) / 3 - h0, hyp1 = (c0 + g + 8) / 3 - h0;
+
+    float acc[k3NT][4];
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
+    for (int j = 0; j < k3NT; ++j)
 #pragma unroll
-        for (int l = 0; l < kLagsPerThread; ++l) acc[c][l] = 0.f;
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
     for (int m = 0; m < n_comb; ++m) {
-        const int base = starts[f * n_comb + m] + lag0;
         __syncthreads();   // the previous fold's readers are done
-        for (int i = tid; i < kKSpan; i += kThreads) {
-            const int s = base + i;
-            const bool ok = s >= 0 && s < n_cap;
-#pragma unroll
-            for (int p = 0; p < kPlanes; ++p)
-                x[p][i] = ok ? cap[(size_t)p * n_cap + s] : 0.f;
-        }
+        if (warp == 0)
+            plan_fold(starts, h0, nh, n_comb, m, kBf16 ? 16 : 8, lane, s_d,
+                      &s_base, &s_w);
         __syncthreads();
+        const int base = s_base + lag0;
+        const int w = s_w;
+        const int d0 = s_d[hyp0], d1 = s_d[hyp1];
 
-        float k1[3][kLagsPerThread], k2[3][kLagsPerThread],
-            k3[3][kLagsPerThread];
+        float mk[3][k3NT][4];
 #pragma unroll
-        for (int c = 0; c < 3; ++c)
+        for (int p = 0; p < 3; ++p)
 #pragma unroll
-            for (int l = 0; l < kLagsPerThread; ++l) {
-                k1[c][l] = 0.f;
-                k2[c][l] = 0.f;
-                k3[c][l] = 0.f;
-            }
-#pragma unroll 4
-        for (int j = 0; j < kTaps; ++j) {
-            float a[kLagsPerThread], b[kLagsPerThread], s[kLagsPerThread];
+            for (int j = 0; j < k3NT; ++j)
 #pragma unroll
-            for (int l = 0; l < kLagsPerThread; ++l) {
-                a[l] = x[0][tid + l * kThreads + j];
-                b[l] = x[1][tid + l * kThreads + j];
-                s[l] = x[2][tid + l * kThreads + j];
-            }
+                for (int e = 0; e < 4; ++e) mk[p][j][e] = 0.f;
+
+        for (int tap0 = 0; tap0 < w; tap0 += kChunk) {
+            const int nt = min(kChunk, w - tap0);   // a multiple of 8 or 16
+            if (tap0 > 0) __syncthreads();
+            for (int i = tid; i < k3LagTile + nt; i += k3Threads) {
+                const int s = base + tap0 + i;
 #pragma unroll
-            for (int c = 0; c < 3; ++c) {
-                const float tr = t[0][c][j], ti = t[1][c][j],
-                            ts = t[2][c][j];
-#pragma unroll
-                for (int l = 0; l < kLagsPerThread; ++l) {
-                    k1[c][l] = fmaf(tr, a[l], k1[c][l]);
-                    k2[c][l] = fmaf(ti, b[l], k2[c][l]);
-                    k3[c][l] = fmaf(ts, s[l], k3[c][l]);
+                for (int p = 0; p < 3; ++p) {
+                    const T* cp = cap + (size_t)p * n_cap;
+                    auto x = [&](int o) {
+                        return (s + o >= 0 && s + o < n_cap) ? cp[s + o]
+                                                             : T(0);
+                    };
+                    if constexpr (kBf16) {
+                        xs[0][p][i] = make_uint2(
+                            x(0) | ((uint32_t)x(1) << 16),
+                            x(8) | ((uint32_t)x(9) << 16));
+                    } else {
+                        uint32_t h, l;
+                        split_tf32(x(0), h, l);
+                        uint32_t* yh = reinterpret_cast<uint32_t*>(xs[0][p]);
+                        uint32_t* yl = reinterpret_cast<uint32_t*>(xs[1][p]);
+                        yh[2 * i] = h;
+                        yl[2 * i] = l;
+                        if (i >= 4) {   // Y[s - 4] = (x[s - 4], x[s])
+                            yh[2 * i - 7] = h;
+                            yl[2 * i - 7] = l;
+                        }
+                    }
                 }
             }
+            __syncthreads();
+#pragma unroll
+            for (int p = 0; p < 3; ++p) {
+                const uint32_t* tp = ts + p * k3Row;
+                const uint32_t* r0 = tp + (3 * g) * k3Row;
+                const uint32_t* r1 = tp + (3 * (g + 8)) * k3Row;
+                if constexpr (kBf16)
+                    plane_bf16(xs[0][p] + lane_s, r0, r1,
+                               tap0 + 2 * t - d0, tap0 + 2 * t - d1,
+                               nt / 16, mk[p]);
+                else
+                    plane_tf32(xs[0][p] + lane_s, xs[1][p] + lane_s,
+                               reinterpret_cast<const float*>(r0),
+                               reinterpret_cast<const float*>(r1),
+                               tap0 + t - d0, tap0 + t - d1, nt / 8, mk[p]);
+            }
         }
+        // The recombination order of the JAX kernel and the plain version.
 #pragma unroll
-        for (int c = 0; c < 3; ++c)
+        for (int j = 0; j < k3NT; ++j)
 #pragma unroll
-            for (int l = 0; l < kLagsPerThread; ++l) {
-                const float re = k1[c][l] - k2[c][l];
-                const float im = (k3[c][l] - k1[c][l]) - k2[c][l];
-                acc[c][l] += re * re + im * im;
+            for (int e = 0; e < 4; ++e) {
+                const float re = mk[0][j][e] - mk[1][j][e];
+                const float im = (mk[2][j][e] - mk[0][j][e]) - mk[1][j][e];
+                acc[j][e] += re * re + im * im;
             }
     }
 
+    // c0, c1: channel g, lags 2t, 2t + 1 of n-tile j; c2, c3: channel g + 8.
     const float n = (float)n_comb;
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
+    for (int h = 0; h < 2; ++h) {
+        const int ch = g + 8 * h;
+        if (ch >= n_ch) continue;
+        float* o = out + (size_t)(c0 + ch) * kHalfFrame + lag0
+                   + 8 * k3NT * warp + 2 * t;
 #pragma unroll
-        for (int l = 0; l < kLagsPerThread; ++l) {
-            const int lag = lag0 + tid + l * kThreads;
-            if (lag < kHalfFrame)
-                out[(size_t)(f * 3 + c) * kHalfFrame + lag] = acc[c][l] / n;
-        }
+        for (int j = 0; j < k3NT; ++j)
+            *reinterpret_cast<float2*>(o + 8 * j) =
+                make_float2(acc[j][2 * h] / n, acc[j][2 * h + 1] / n);
+    }
 }
 
 }  // namespace
@@ -410,14 +626,29 @@ extern "C" int xcorr_fold_launch(const float* cap, int n_cap,
     return (int)cudaGetLastError();
 }
 
-// cap (3, n_cap) re/im/re+im; tpl (n_f, 3, 3, 137) re/im/re+im.
+// cap (3, n_cap) a, b, a+b; tpl (n_f, 3, 3, 137) tr, ti, tr+ti; float32.
 extern "C" int xcorr_fold3_launch(const float* cap, int n_cap,
                                   const float* tpl, const int* starts,
                                   int n_f, int n_comb, float* out,
                                   void* stream)
 {
-    const dim3 grid((kHalfFrame + kTile - 1) / kTile, n_f);
-    xcorr_fold3_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        cap, n_cap, tpl, starts, n_comb, out);
+    const dim3 grid(kHalfFrame / k3LagTile, (3 * n_f + k3Rows - 1) / k3Rows);
+    xcorr_fold3_tc_kernel<float><<<grid, k3Threads, 0,
+                                   (cudaStream_t)stream>>>(
+        cap, n_cap, tpl, starts, n_f, n_comb, out);
+    return (int)cudaGetLastError();
+}
+
+// The same planes as bfloat16 bits.
+extern "C" int xcorr_fold3_bf16_launch(const void* cap, int n_cap,
+                                       const void* tpl, const int* starts,
+                                       int n_f, int n_comb, float* out,
+                                       void* stream)
+{
+    const dim3 grid(kHalfFrame / k3LagTile, (3 * n_f + k3Rows - 1) / k3Rows);
+    xcorr_fold3_tc_kernel<uint16_t><<<grid, k3Threads, 0,
+                                      (cudaStream_t)stream>>>(
+        static_cast<const uint16_t*>(cap), n_cap,
+        static_cast<const uint16_t*>(tpl), starts, n_f, n_comb, out);
     return (int)cudaGetLastError();
 }

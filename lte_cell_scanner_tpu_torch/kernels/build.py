@@ -1,9 +1,9 @@
 """Build the CUDA sources under ``csrc/`` with nvcc and bind them with ctypes.
 
 Each ``csrc/<source>.cu`` exports one ``extern "C"`` launcher per kernel
-(``xcorr_fold.cu`` two: the 2x2 and the Karatsuba mode of one kernel body;
-``fd_demod.cu`` two: the MIB and the stream mode) that
-takes raw device pointers and a CUDA stream and returns
+(``xcorr_fold.cu`` three: the 2x2 kernel and the float32 and bfloat16
+modes of the Karatsuba kernel; ``fd_demod.cu`` two: the MIB and the
+stream mode) that takes raw device pointers and a CUDA stream and returns
 ``cudaGetLastError()``. A source is compiled for Hopper (``sm_90a``) into
 a shared library under ``build/kernels/`` at the root of the checkout,
 named by a hash of its source so that an edited source is rebuilt.
@@ -39,6 +39,8 @@ _FD_DEMOD_ARGS = (_P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P)
 _SIGNATURES = {
     "xcorr_fold": ("xcorr_fold", "xcorr_fold_launch", _XCORR_ARGS),
     "xcorr_fold3": ("xcorr_fold", "xcorr_fold3_launch", _XCORR_ARGS),
+    "xcorr_fold3_bf16": ("xcorr_fold", "xcorr_fold3_bf16_launch",
+                         _XCORR_ARGS),
     "fd_demod": ("fd_demod", "fd_demod_launch", _FD_DEMOD_ARGS),
     "fd_demod_stream": ("fd_demod", "fd_demod_stream_launch", _FD_DEMOD_ARGS),
     "viterbi": ("viterbi", "viterbi_launch", (_P, _I, _I, _P, _P, _P, _P)),

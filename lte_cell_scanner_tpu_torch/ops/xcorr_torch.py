@@ -1,6 +1,6 @@
 """PSS hypothesis scan on the device: correlation bank + k_factor fold
-(the ``xcorr_fold`` and ``xcorr_fold3`` CUDA kernels), delay spread,
-signal power and the frequency collapse.
+(the ``xcorr_fold``, ``xcorr_fold3`` and ``xcorr_fold3_bf16`` CUDA
+kernels), delay spread, signal power and the frequency collapse.
 
 Counterpart of lte_cell_scanner_tpu/ops/xcorr_pallas.py
 (``xcorr_core_pallas``) and ops/xcorr_jax.py (``_delay_spread``,
@@ -15,11 +15,14 @@ both, on the tensor cores with 3xTF32 products (each operand split into
 ``hi = tf32(x)`` and ``lo = tf32(x - hi)``, :func:`tf32_round`; the sum
 ``lo*hi + hi*lo + hi*hi`` keeps the error near float32's;
 :func:`xcorr_fold_3xtf32_plain` models the products). "tea3" is the
-Karatsuba kernel (K3): three real products per tap on the CUDA cores,
-``xcorr_fold3``. Precision "bf16" reproduces the JAX bf16 mode's rounding
-points (the template bank, the window values and, for tea3, the sum
-re+im, each rounded to bfloat16) and then runs the same kernels; a bf16
-value is exact in TF32, so there the split's low parts are zero.
+Karatsuba kernel (K3): three real products per tap on the tensor cores,
+``xcorr_fold3`` in two modes picked by the inputs' dtype: float32 runs
+3xTF32 products (:func:`xcorr_fold3_3xtf32_plain` models them), bfloat16
+one bf16 product per tap with float32 sums. Precision "bf16" reproduces
+the JAX bf16 mode's rounding points (the template bank, the window values
+and, for tea3, the sum re+im, each rounded to bfloat16): K1 then runs on
+the rounded float32 values (a bf16 value is exact in TF32, so the split's
+low parts are zero), K3 in its bf16 mode (:func:`karatsuba_inputs`).
 
 All k_factor-dependent index arithmetic (template shifts, fold starts) is
 float64 host planning in :func:`scan_plan`; the device works in float32.
@@ -191,19 +194,21 @@ def xcorr_fold(cap2: torch.Tensor, tpl: torch.Tensor, starts: torch.Tensor,
     ``xc_incoherent_single`` of the reference. A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel.
     """
-    return _fold_call("xcorr_fold", 2, cap2, tpl, starts, n_comb_xc)
+    return _fold_call("xcorr_fold", 2, torch.float32, cap2, tpl, starts,
+                      n_comb_xc)
 
 
-def _fold_call(name, n_planes, cap, tpl, starts, n_comb_xc):
-    """Run kernel ``name`` (``n_planes`` capture and template planes), or
-    its plain version for a CPU tensor; returns (3, 9600, n_f)."""
+def _fold_call(name, n_planes, dtype, cap, tpl, starts, n_comb_xc):
+    """Run kernel ``name`` (``n_planes`` capture and template planes of
+    ``dtype``), or its plain version for a CPU tensor; returns
+    (3, 9600, n_f) f32."""
     n_f = tpl.shape[0]
     if cap.device.type == "cpu":
         plain = xcorr_fold_plain if n_planes == 2 else xcorr_fold3_plain
         fold = plain(cap, tpl, starts, n_comb_xc)
     else:
-        _check(cap, torch.float32, 2, "cap")
-        _check(tpl, torch.float32, 4, "tpl")
+        _check(cap, dtype, 2, "cap")
+        _check(tpl, dtype, 4, "tpl")
         _check(starts, torch.int32, 2, "starts")
         if cap.shape[0] != n_planes \
                 or tpl.shape[1:] != (3, n_planes, PSS_TD_LEN) \
@@ -228,38 +233,88 @@ def _fold_call(name, n_planes, cap, tpl, starts, n_comb_xc):
 def xcorr_fold3_plain(cap3: torch.Tensor, tpl: torch.Tensor,
                       starts: torch.Tensor, n_comb_xc: int,
                       chunk: int = 32) -> torch.Tensor:
-    """Plain PyTorch version of the ``xcorr_fold3`` kernel: (n_f*3, 9600).
+    """Plain PyTorch version of the ``xcorr_fold3`` kernel, both modes:
+    (n_f*3, 9600) f32.
 
     Three real correlations per channel, k1 = tr * a, k2 = ti * b,
     k3 = (tr+ti) * (a+b), recombined as re = k1 - k2, im = (k3 - k1) - k2;
-    then the fold of :func:`xcorr_fold_plain`."""
+    then the fold of :func:`xcorr_fold_plain`. bfloat16 inputs (the bf16
+    mode) are widened to float32, which is exact, and their products are
+    exact in float32, as in the kernel."""
+    if cap3.dtype == torch.bfloat16:
+        cap3, tpl = cap3.float(), tpl.float()
     return torch.cat([
         _fold3_plain_chunk(cap3, tpl[i:i + chunk], starts[i:i + chunk],
                            n_comb_xc)
         for i in range(0, tpl.shape[0], chunk)])
 
 
-def _fold3_plain_chunk(cap3, tpl, starts, n_comb_xc):
+def _fold3_plain_chunk(cap3, tpl, starts, n_comb_xc, conv=F.conv1d):
     n_f = tpl.shape[0]
     w = tpl.reshape(3 * n_f, 3, PSS_TD_LEN)
-    k1, k2, k3 = (F.conv1d(cap3[None, p:p + 1], w[:, p:p + 1])[0]
+    k1, k2, k3 = (conv(cap3[None, p:p + 1], w[:, p:p + 1])[0]
                   for p in range(3))                      # (n_ch, n_lags)
     re = k1 - k2
     im = (k3 - k1) - k2
     return _fold(re ** 2 + im ** 2, starts, n_comb_xc)
 
 
+def xcorr_fold3_3xtf32_plain(cap3: torch.Tensor, tpl: torch.Tensor,
+                             starts: torch.Tensor, n_comb_xc: int
+                             ) -> torch.Tensor:
+    """The float32 ``xcorr_fold3`` kernel's products in plain PyTorch:
+    (n_f*3, 9600).
+
+    Each of the three real correlations as three float32 convolutions of
+    the TF32-split planes, lo*hi + hi*lo + hi*hi (as
+    :func:`xcorr_fold_3xtf32_plain` does for the 2x2 kernel), then the
+    Karatsuba recombination and the fold. On the card, call it with
+    float32 convolutions in full float32 (``full_f32_matmuls``)."""
+    def split(x):
+        hi = tf32_round(x)
+        return hi, tf32_round(x - hi)
+
+    def conv(x, w):
+        (x_hi, x_lo), (w_hi, w_lo) = split(x), split(w)
+        return (F.conv1d(x_lo, w_hi) + F.conv1d(x_hi, w_lo)
+                + F.conv1d(x_hi, w_hi))
+
+    return _fold3_plain_chunk(cap3, tpl, starts, n_comb_xc, conv)
+
+
 def xcorr_fold3(cap3: torch.Tensor, tpl: torch.Tensor, starts: torch.Tensor,
                 n_comb_xc: int) -> torch.Tensor:
     """Fused Karatsuba correlation + incoherent fold (layout "tea3").
 
-    cap3 (3, n_cap) f32 planes re, im, re+im (:func:`karatsuba_planes`);
-    tpl (n_f, 3, 3, 137) f32 planes re, im, re+im (``scan_plan(...,
+    cap3 (3, n_cap) planes re, im, re+im (:func:`karatsuba_planes`); tpl
+    (n_f, 3, 3, 137) planes re, im, re+im (``scan_plan(...,
     layout="tea3").tpl``); starts (n_f, n_comb_xc) i32 with every fold
-    window inside the capture. Returns single (3, 9600, n_f) f32. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel.
+    window inside the capture. The dtype picks the kernel: float32 planes
+    and bank run ``xcorr_fold3`` (3xTF32 products), bfloat16 planes and
+    bank run ``xcorr_fold3_bf16`` (one bf16 product, float32 sums); any
+    other pair raises. Returns single (3, 9600, n_f) f32. A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel.
     """
-    return _fold_call("xcorr_fold3", 3, cap3, tpl, starts, n_comb_xc)
+    if cap3.dtype != tpl.dtype \
+            or cap3.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"xcorr_fold3: want float32 or bfloat16 planes and "
+                         f"bank of one dtype, got {cap3.dtype} and "
+                         f"{tpl.dtype}")
+    name = "xcorr_fold3_bf16" if cap3.dtype == torch.bfloat16 \
+        else "xcorr_fold3"
+    return _fold_call(name, 3, cap3.dtype, cap3, tpl, starts, n_comb_xc)
+
+
+def karatsuba_inputs(cap2: torch.Tensor, tpl: torch.Tensor,
+                     precision: str = "f32"):
+    """The inputs of ``xcorr_fold3`` as :func:`xcorr_core` hands them:
+    (cap3, tpl) in float32, or in bfloat16 for precision "bf16", where
+    :func:`karatsuba_planes` and :func:`scan_plan` have already rounded
+    every value to bfloat16, so the cast is exact."""
+    cap3 = karatsuba_planes(cap2, precision)
+    if precision == "bf16":
+        return cap3.to(torch.bfloat16), tpl.to(torch.bfloat16)
+    return cap3, tpl
 
 
 def _check(t: torch.Tensor, dtype, ndim: int, name: str) -> None:
@@ -309,14 +364,15 @@ def xcorr_core(cap2: torch.Tensor, plan: ScanPlan, ds_comb_arm: int):
 
     ``plan.layout`` picks the kernel ("tea"/"roll": ``xcorr_fold``,
     "tea3": ``xcorr_fold3``); ``plan.precision`` "bf16" rounds the
-    correlation's inputs (the signal power uses the f32 capture).
+    correlation's inputs (the signal power uses the f32 capture) and runs
+    K3 in its bf16 mode.
     Returns (packed (7, 9600), single (3, 9600, n_f), inc (3, 9600, n_f)).
     """
     dev = cap2.device
     tpl = torch.from_numpy(plan.tpl).to(dev)
     starts = torch.from_numpy(plan.starts).to(dev)
     if plan.layout == "tea3":
-        single = xcorr_fold3(karatsuba_planes(cap2, plan.precision), tpl,
+        single = xcorr_fold3(*karatsuba_inputs(cap2, tpl, plan.precision),
                              starts, plan.n_comb_xc)
     else:
         cap_x = round_bf16(cap2) if plan.precision == "bf16" else cap2

@@ -5,13 +5,23 @@ greedy peak search).
 Times with CUDA events on the card: warm-up launches, then the median of
 ``--iters`` timed launches. ``--layout`` picks the kernel: "tea" and
 "roll" (the JAX package's K1 and K2 layouts) both run ``xcorr_fold``,
-"tea3" the Karatsuba kernel ``xcorr_fold3`` (K3). ``xcorr_fold`` runs on
-the tensor cores with 3xTF32 products, ``xcorr_fold3`` on the CUDA cores.
-``--precision bf16`` rounds the correlation's inputs to bfloat16 at the JAX
-bf16 mode's rounding points and runs the same kernels: a numerics option.
-The JAX tool's ``--tile`` sized a Mosaic VMEM block and has no counterpart
-here: each CUDA kernel's tile is fixed, 160 lags x 8 hypotheses for
-``xcorr_fold`` and 512 lags x 1 hypothesis for ``xcorr_fold3``.
+"tea3" the Karatsuba kernel ``xcorr_fold3`` (K3). Both run on the tensor
+cores: ``xcorr_fold`` with 3xTF32 products, ``xcorr_fold3`` with 3xTF32
+products in float32 and, under ``--precision bf16``, one bf16 product per
+tap (its bf16 mode). ``--precision bf16`` rounds the correlation's inputs
+to bfloat16 at the JAX bf16 mode's rounding points; ``xcorr_fold`` then
+runs its float32 kernel on the rounded values. The JAX tool's ``--tile``
+sized a Mosaic VMEM block and has no counterpart here: each CUDA kernel's
+tile is fixed, 160 lags of 8 hypotheses (``xcorr_fold``) or of 16
+channels (``xcorr_fold3``).
+
+The tensor-core work (``tc_gflop``) counts the function, not the
+kernel's padding: 3 n_f channels x 9600 lags x n_comb folds x 137 complex
+taps, at 8 real flops a tap (2x2) or 6 (Karatsuba), times the products
+each real MAC takes (3 for 3xTF32, 1 for bf16); ``tc_bound_ms`` is that
+over the H100's dense peak for the products' type (495 TFLOP/s TF32, 989
+bf16), and ``tc_share`` that bound over the kernel's time (on the card
+only).
 
 Workload: one 80 ms capture (the simulator's, or ``--capture FILE.it``
 with a ``capbuf`` record) at 739 MHz with the +-``--ppm`` hypothesis grid
@@ -38,8 +48,10 @@ from lte_cell_scanner_tpu_torch.ops.peak_torch import (peak_search_device,
 from lte_cell_scanner_tpu_torch.utils.device import (full_f32_matmuls,
                                                      resolve_device)
 
-TILE = {"tea": 160, "roll": 160, "tea3": 512}   # lags per block of each kernel
+TILE = {"tea": 160, "roll": 160, "tea3": 160}   # lags per block of each kernel
 WARMUP = 3
+# H100 SXM dense tensor-core peaks, flop/s.
+PEAK_TC = {"tf32": 495e12, "bf16": 989e12}
 
 
 def get_capture(path=None):
@@ -80,8 +92,8 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--precision", choices=xcorr_torch.PRECISIONS,
                    default="f32",
-                   help="bf16 rounds the correlation inputs, then runs "
-                        "the same kernels")
+                   help="bf16 rounds the correlation inputs (and runs "
+                        "K3 in its bf16 mode)")
     p.add_argument("--layout", choices=("roll", "tea", "tea3"),
                    default="tea")
     p.add_argument("--iters", type=int, default=50)
@@ -110,7 +122,7 @@ def main(argv=None) -> dict:
     # The fold's inputs as xcorr_core forms them, made once: the fold
     # timing is the kernel's alone.
     if args.layout == "tea3":
-        cap_x = xcorr_torch.karatsuba_planes(cap2, args.precision)
+        cap_x, tpl = xcorr_torch.karatsuba_inputs(cap2, tpl, args.precision)
         fold = xcorr_torch.xcorr_fold3
     else:
         cap_x = (xcorr_torch.round_bf16(cap2) if args.precision == "bf16"
@@ -132,6 +144,12 @@ def main(argv=None) -> dict:
     n_prod = 3 if args.layout == "tea3" else 4
     n_ch = 3 * len(fset)
     gflop = (2 * n_prod * n_ch * 137 * (n_cap - 136)) / 1e9
+    # The tensor cores' work for the function, and its bound.
+    bf16_mma = args.layout == "tea3" and args.precision == "bf16"
+    tc_gflop = (n_ch * 9600 * plan.n_comb_xc * 137 * (2 * n_prod)
+                * (1 if bf16_mma else 3)) / 1e9
+    peak = PEAK_TC["bf16" if bf16_mma else "tf32"]
+    tc_bound_ms = tc_gflop * 1e9 / peak * 1e3
     results.update({
         "metric": "device_scan_latency_ms",
         "value": results["full_scan_ms"],
@@ -144,6 +162,11 @@ def main(argv=None) -> dict:
         "n_f": len(fset),
         "n_comb_xc": plan.n_comb_xc,
         "matmul_gflop": round(gflop, 1),
+        "tc_gflop": round(tc_gflop, 2),
+        "tc_peak_tflops": peak / 1e12,
+        "tc_bound_ms": tc_bound_ms,
+        "tc_share": (tc_bound_ms / results["correlate_fold_ms"]
+                     if dev.type == "cuda" else None),
         "samples_per_sec": int(n_cap / (results["full_scan_ms"] / 1e3)),
         "peaks": peaks.tolist(),
     })

@@ -163,7 +163,13 @@ def test_bench_scan_layouts(scans, layout):
                 "matmul_gflop", "samples_per_sec"):
         assert key in out
     assert out["layout"] == layout and out["n_f"] == 3
-    assert out["tile"] == (512 if layout == "tea3" else 160)
+    assert out["tile"] == 160
+    # The function's tensor-core work: 3xTF32 products of 8 (2x2) or 6
+    # (Karatsuba) real flops per complex tap, over the TF32 peak.
+    assert out["tc_gflop"] == pytest.approx(
+        9 * 9600 * out["n_comb_xc"] * 137 * (6 if layout == "tea3" else 8)
+        * 3 / 1e9, abs=0.006)
+    assert out["tc_peak_tflops"] == 495.0 and out["tc_share"] is None
     assert out["device"] == "cpu"
     # Real products per tap: four in the 2x2 layouts, three in tea3.
     assert out["matmul_gflop"] == pytest.approx(

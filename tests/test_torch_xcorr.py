@@ -20,8 +20,9 @@ from lte_cell_scanner_tpu.ops.xcorr_pallas import scan_plan as jax_scan_plan
 from lte_cell_scanner_tpu.ops.xcorr_pallas import xcorr_single_pallas
 from lte_cell_scanner_tpu_torch.ops import xcorr_torch
 from lte_cell_scanner_tpu_torch.ops.xcorr_torch import (
-    karatsuba_planes, round_bf16, scan_plan, tf32_round, xcorr_core,
-    xcorr_fold, xcorr_fold3, xcorr_fold_3xtf32_plain, xcorr_fold_plain)
+    karatsuba_inputs, karatsuba_planes, round_bf16, scan_plan, tf32_round,
+    xcorr_core, xcorr_fold, xcorr_fold3, xcorr_fold3_3xtf32_plain,
+    xcorr_fold3_plain, xcorr_fold_3xtf32_plain, xcorr_fold_plain)
 from torch_one_thread import _one_torch_thread  # noqa: F401
 
 FC = 739e6
@@ -340,3 +341,132 @@ def test_kernel_mirror_matches_plain(n_cap, fset):
             torch.from_numpy(plan.starts), plan.n_comb_xc)
     _close(_kernel_mirror(*args).numpy().astype(np.float64),
            xcorr_fold_plain(*args).numpy().astype(np.float64))
+
+
+# ---- The Karatsuba kernel (K3) on the tensor cores, on the CPU.
+
+def _kernel3_mirror(cap3, tpl, starts, n_comb_xc, bf16=False):
+    """csrc/xcorr_fold.cu's K3 formulation in torch: the 3 n_f channels in
+    groups of 16 (the last padded with zero templates); per fold and group,
+    base = min starts over the group's hypotheses, d_f = starts - base, W =
+    137 + max d_f rounded up to the mma depth (8 taps for TF32, 16 for
+    bf16); per plane p (a, b, a+b against tr, ti, tr+ti) M_p = T_p X_p with
+    T_p[c][k] = tpl_p[c][k - d_f(c)], 0 unless 0 <= k - d_f < 137, and the
+    Toeplitz X_p[k][l] = x_p[base + l + k] (0 outside the capture), read
+    from the pair words the kernel stages: X[k0 + t (+ 4)][l] = Y[l + k0 +
+    t] = (x[s], x[s + 4]) for TF32 (k0 a multiple of 8, t < 4), X[k0 + 2t
+    (+ 1, + 8, + 9)][l] = Q[l + k0 + 2t] = (x[s], x[s + 1], x[s + 8],
+    x[s + 9]) for bf16 (k0 a multiple of 16); then re = m1 - m2,
+    im = (m3 - m1) - m2 and |xc|^2 added fold by fold. Returns
+    (3 * n_f, 9600)."""
+    n_f, n_cap = tpl.shape[0], cap3.shape[1]
+    n_ch = 3 * n_f
+    n_g, depth = -(-n_ch // 16), 16 if bf16 else 8
+    tg = torch.zeros(16 * n_g, 3, 137)
+    tg[:n_ch] = tpl.float().reshape(n_ch, 3, 137)
+    # The pair words' members: offset of each within its word, and the
+    # k (mod the depth) each X row takes from word l + k - member.
+    members = [0, 1, 8, 9] if bf16 else [0, 4]
+    k_idx = torch.arange(depth)
+    if bf16:      # k = 2t + e: word at 2t, member e in 0, 1, 8, 9
+        word_off = 2 * ((k_idx % 8) // 2)
+        member = (k_idx % 2) + 2 * (k_idx // 8)
+    else:         # k = t + 4h: word at t, member h
+        word_off, member = k_idx % 4, k_idx // 4
+    out = torch.zeros(16 * n_g, 9600)
+    for grp in range(n_g):
+        rows = torch.arange(16 * grp, 16 * grp + 16)
+        h0, h1 = 16 * grp // 3, (min(16 * grp + 16, n_ch) - 1) // 3
+        acc = torch.zeros(16, 9600)
+        for m in range(n_comb_xc):
+            st = starts[h0:h1 + 1, m].long()
+            base = int(st.min())
+            hyp = (rows // 3).clamp(max=h1)
+            d = torch.where(rows < n_ch, starts[hyp, m].long() - base, 0)
+            w = (137 + int(st.max()) - base + depth - 1) // depth * depth
+            s = base + torch.arange(9600 + w + 9)
+            ok = (s >= 0) & (s < n_cap)
+            x = torch.zeros(3, len(s))
+            x[:, ok] = cap3[:, s[ok]].float()
+            # The staged pair words: word l holds x[l + member].
+            words = torch.stack([x[:, mb:mb + 9600 + w] for mb in members],
+                                -1)
+            k = torch.arange(w)
+            wo, mb = word_off[k % depth] + k - k % depth, member[k % depth]
+            lags = torch.arange(9600)
+            xk = words[:, lags[None, :] + wo[:, None], mb[:, None]]
+            ii = k[None, :] - d[:, None]                     # (16, W)
+            tk = torch.where(((ii >= 0) & (ii < 137))[..., None],
+                             tg[rows[:, None], :, ii.clamp(0, 136)], 0.0)
+            m1, m2, m3 = (tk[..., p] @ xk[p] for p in range(3))
+            re = m1 - m2
+            im = (m3 - m1) - m2
+            acc += re ** 2 + im ** 2
+        out[rows] = acc / n_comb_xc
+    return out[:n_ch]
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("n_cap,fset", [
+    (48000, np.arange(-15, 16) * 5e3),
+    (48000, np.arange(-8, 9) * 5e3),
+    (48000, np.array([0.0])),
+    (25000, np.arange(-120, 121) * 5e3),
+    # Unsorted: the groups' fold starts spread wider than the grid's.
+    (48000, np.random.default_rng(1).permutation(np.arange(-15, 16)) * 5e3),
+], ids=["31", "17", "1", "241", "31-unsorted"])
+def test_kernel3_mirror_matches_plain(n_cap, fset, precision):
+    """K3's formulation in both modes against its plain version; in bf16
+    on the bf16-rounded planes and bank that xcorr_core hands it."""
+    cap = _capture(n=n_cap, seed=7)
+    plan = scan_plan(n_cap, fset, FC, FC, 1.92e6, layout="tea3",
+                     precision=precision)
+    cap3, tpl = karatsuba_inputs(_cap2(cap), torch.from_numpy(plan.tpl),
+                                 precision)
+    args = (cap3, tpl, torch.from_numpy(plan.starts), plan.n_comb_xc)
+    _close(_kernel3_mirror(*args, bf16=precision == "bf16").numpy()
+           .astype(np.float64),
+           xcorr_fold3_plain(*args).numpy().astype(np.float64))
+
+
+def test_3xtf32_karatsuba_error_near_float32():
+    """The float32 K3's products (three TF32-split convolutions per plane,
+    the dropped lo*lo terms included) summed in float32, against a float64
+    reference: no more than twice the error of plain float32 Karatsuba."""
+    cap = _capture(seed=5)
+    fset = np.arange(-15, 16) * 5e3
+    plan = scan_plan(len(cap), fset, FC, FC, 1.92e6, layout="tea3")
+    cap3, tpl = karatsuba_planes(_cap2(cap)), torch.from_numpy(plan.tpl)
+    starts = torch.from_numpy(plan.starts)
+    ref = xcorr_fold3_plain(cap3.double(), tpl.double(), starts,
+                            plan.n_comb_xc)
+    err_f32 = (xcorr_fold3_plain(cap3, tpl, starts, plan.n_comb_xc).double()
+               - ref).abs().max()
+    err_split = (xcorr_fold3_3xtf32_plain(cap3, tpl, starts, plan.n_comb_xc
+                                          ).double() - ref).abs().max()
+    assert 0 < err_f32 < 1e-5 * ref.abs().max()
+    assert err_split <= 2 * err_f32
+
+
+def test_fold3_mode_by_dtype():
+    """xcorr_fold3 runs the float32 or the bf16 mode by its inputs' dtype:
+    the bf16 cast of xcorr_core's inputs is exact, the bf16 mode gives the
+    float32 mode's result on the same rounded values, and a mixed or other
+    dtype raises."""
+    cap = _capture(n=25000, seed=3)
+    fset = np.arange(-2, 3) * 5e3
+    plan = scan_plan(len(cap), fset, FC, FC, 1.92e6, layout="tea3",
+                     precision="bf16")
+    tpl32 = torch.from_numpy(plan.tpl)
+    cap3, tpl = karatsuba_inputs(_cap2(cap), tpl32, "bf16")
+    assert cap3.dtype == tpl.dtype == torch.bfloat16
+    cap3_32 = karatsuba_planes(_cap2(cap), "bf16")
+    assert torch.equal(cap3.float(), cap3_32)
+    assert torch.equal(tpl.float(), tpl32)
+    starts = torch.from_numpy(plan.starts)
+    assert torch.equal(xcorr_fold3(cap3, tpl, starts, plan.n_comb_xc),
+                       xcorr_fold3(cap3_32, tpl32, starts, plan.n_comb_xc))
+    for a, b in ((cap3, tpl32), (cap3_32, tpl),
+                 (cap3_32.double(), tpl32.double())):
+        with pytest.raises(ValueError):
+            xcorr_fold3(a, b, starts, plan.n_comb_xc)
