@@ -4,11 +4,12 @@ NVIDIA card.
 
     python3 chip_smoke.py
 
-Three paths of the port run on the card: the cell search on one capture
+Four paths of the port run on the card: the cell search on one capture
 (search/cell_search.py), the batched tracker engine (tracker/,
-LTETracker) and the tools (tools/: bench_scan, bench_viterbi,
-bench_decode, bench_demod, bench_tracker, mc_search). Phases; the script exits non-zero
-if any fails:
+LTETracker), the tools (tools/: bench_scan, bench_viterbi, bench_decode,
+bench_demod, bench_tracker, mc_search) and the batched fc sweep
+(parallel/fc_sweep.py, search/pipeline.py, the CLI's --batch-sweep).
+Phases; the script exits non-zero if any fails:
 
 1. Print the card (nvidia-smi name and power limit) and build the CUDA
    sources from csrc/ (one nvcc each, started together).
@@ -40,12 +41,26 @@ if any fails:
    in tea and tea3 on both captures (each peak table must equal tea's in
    the same precision), bench_viterbi (bits equal
    to the host decoder), bench_decode (the synced candidates, replicated
-   to a batch of 64, decode as they do alone), bench_demod at the tracker
+   to a batch of 64, decode as they do alone; and the same batch over 32
+   stacked captures), profile_pipeline (64 carriers in chunks of 32),
+   bench_demod at the tracker
    path's median stream launch size, 1,050 and 403,200 windows,
    bench_tracker at 8 cells x 0.6 s, and mc_search at the settings of the
    JAX package's MC_r05.json (ppm 10, seed 0, 50 trials at -10 and -12
    dB): 50/50 detections and MIB decodes at -10 dB, no false cell, and at
-   least 36/50 at -12 dB.
+   least 36/50 at -12 dB; the sweep path: 64 carriers (739.0-745.3 MHz,
+   31 hypotheses, a quarter each cells 271, 503 and 90 and an empty
+   carrier, every other one on the E4000 tuner's carrier, as uint8 radio
+   planes) in one batch, K1 launched once over the 64-capture stack and
+   checked against its plain version; its cells against the serial
+   cell_search on every capture and a device="cpu" run on 4; the
+   pipelined sweep of 128 carriers in chunks of 32 (K1 once per chunk)
+   against the whole stack; share_banks; full peak tables (max_peaks=1)
+   redone on the card; the CLI's --batch-sweep
+   --sweep-batch 32 with --simulate -r, then --load; the sweep's ms per
+   carrier (serial, whole stack, pipelined; host clock, median of 5), K1
+   batched against 64 one-capture launches (CUDA events) and the whole
+   stack's device-busy share.
 4. Time each kernel, its plain version and its library yardstick (K1:
    F.conv1d of the 2x2 blocks; K3: the grouped F.conv1d of its three real
    correlations; K4: torch.fft.fft and a dense f32 matmul, both partial;
@@ -58,7 +73,9 @@ if any fails:
    median cycle), its stage split and its device-busy share; and the
    host cost of a launch's device guard.
 
-The line before the last is {"kernels": [...]}; the last line is
+Each kernel's ``launches`` in the kernels line is the sum over the four
+paths' runs, ``launches_by_path`` the split. The line before the last is
+{"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 this file, it exits with 2 and prints no result.
 """
@@ -108,6 +125,14 @@ TOOLS_KERNELS = ("xcorr_fold", "xcorr_fold3", "xcorr_fold3_bf16", "fd_demod",
 # point, ppm 10, seed 0; there 50/50 at -10 dB and 43/50 at -12 dB.
 MC_SNRS, MC_TRIALS, MC_REF = (-10.0, -12.0), 50, {-10.0: 50, -12.0: 43}
 MC_MIN = {-10.0: 50, -12.0: 36}
+
+# The sweep path: B = 64 carriers (739.0-745.3 MHz) in one batch, and the
+# pipeline at 128 carriers (739.0-751.7 MHz) in chunks of 32; the serial
+# loop timed on 16 of the captures; SWEEP_REPS timed runs each.
+SWEEP_B, SWEEP_PIPE, SWEEP_REPS, SWEEP_SEED = 64, (128, 32), 5, 11
+SWEEP_CELL90 = dict(n_id_1=30, n_id_2=0, snr_db=15.0, freq_offset=6e3,
+                    n_rb_dl=75, seed=7)
+SWEEP_KERNELS = ("xcorr_fold", "fd_demod", "viterbi")
 
 # Flops of csrc/fd_demod.cu's 128-point FFT per window: 8 in-register
 # DFT_16 (188 flops each: 16 complex adds, 6 twiddle products, two DFT_8
@@ -163,6 +188,22 @@ def host_ms(fn) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times))
+
+
+def host_ms_n(fn, n: int):
+    """(median, runs): wall milliseconds of fn() ending in a device sync,
+    n runs after one warm-up run."""
+    import torch
+
+    fn()
+    runs = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append(round((time.perf_counter() - t0) * 1e3, 3))
+    return float(np.median(runs)), runs
 
 
 def stage_breakdown(capbuf, cp: str, fset) -> None:
@@ -500,7 +541,8 @@ def tools_path(caps, demod_sizes) -> dict:
     from lte_cell_scanner_tpu_torch.io.itfile import save_it
     from lte_cell_scanner_tpu_torch.tools import (bench_decode, bench_demod,
                                                   bench_scan, bench_tracker,
-                                                  bench_viterbi, mc_search)
+                                                  bench_viterbi, mc_search,
+                                                  profile_pipeline)
 
     out = {}
     # bench_scan reads a capture from an .it file (the reference's format).
@@ -547,6 +589,24 @@ def tools_path(caps, demod_sizes) -> dict:
           f"{dec['replicas_agree']}, cells {dec['cells']} (want >= 1, True, "
           "[271])")
     out["decode"] = dec
+    # The batch of 64 over 32 stacked copies of the capture, as a sweep
+    # hands the decode its captures: the same decodes.
+    dec32 = bench_decode.main(["--iters", "10", "--b-cap", "32",
+                               "--capture", paths["normal"]])
+    check(dec32["b_captures"] == 32 and dec32["replicas_agree"]
+          and dec32["mib_decoded"] == dec["mib_decoded"]
+          and dec32["cells"] == dec["cells"],
+          f"bench_decode --b-cap 32: {dec32['mib_decoded']} of "
+          f"{dec32['b_candidates']} decode over 32 stacked captures, as over "
+          f"one ({dec['mib_decoded']}); cells {dec32['cells']}")
+    out["decode_b_cap"] = dec32
+    prof = profile_pipeline.main(["--carriers", "64", "--batch", "32",
+                                  "--reps", "2"])
+    check(prof["cells"] == [271] and prof["carriers_with_cells"] == 64,
+          f"profile_pipeline 64 x 32: cell 271 on "
+          f"{prof['carriers_with_cells']} of 64 carriers, "
+          f"{prof['value']:.3f} ms per carrier")
+    out["profile_pipeline"] = prof
     try:
         out["demod"] = bench_demod.main([
             "--windows", ",".join(map(str, demod_sizes)), "--iters", "20"])
@@ -576,6 +636,277 @@ def tools_path(caps, demod_sizes) -> dict:
               "detections and MIB decodes"
               + (", no false cell" if snr == -10.0 else ""))
     out["mc"] = art
+    return out
+
+
+def sweep_stack(n_carriers: int):
+    """The sweep's captures: n_carriers carriers from 739.0 MHz on the 100
+    kHz raster, in turn a quarter each cell 271 (normal CP, 50 RB), cell
+    503 (extended CP, 100 RB), cell 90 (normal CP, 75 RB at +6 kHz, seed
+    7: the JAX package's tests/test_sharding.py:152) and an empty carrier
+    of complex Gaussian noise; every other capture on the E4000 tuner's
+    programmed carrier (+58 Hz). The four distinct captures are built once
+    and go in as the radio's uint8 I/Q planes. Returns (planes (B, 2, n),
+    fcs, fc_programmed, expected (cell, cp, n_rb_dl) per capture or
+    None)."""
+    from lte_cell_scanner_tpu_torch.io.capture import compute_fc_programmed
+    from lte_cell_scanner_tpu_torch.io.simulator import synthetic_capture
+    from lte_cell_scanner_tpu_torch.tools.profile_pipeline import \
+        radio_planes
+
+    rng = np.random.default_rng(SWEEP_SEED)
+    n = 153600
+    kinds = [
+        (synthetic_capture(**CAPTURES["normal"]), (271, "normal", 50)),
+        (synthetic_capture(**CAPTURES["extended"]), (503, "extended", 100)),
+        (synthetic_capture(**SWEEP_CELL90), (90, "normal", 75)),
+        ((rng.standard_normal(n) + 1j * rng.standard_normal(n)) * 0.3,
+         None)]
+    planes = [radio_planes(c) for c, _ in kinds]
+    fcs = [FC + 100e3 * b for b in range(n_carriers)]
+    fcp = [compute_fc_programmed(28.8e6, fc) + 58 if b % 2 else fc
+           for b, fc in enumerate(fcs)]
+    return (np.stack([planes[b % 4] for b in range(n_carriers)]), fcs, fcp,
+            [kinds[b % 4][1] for b in range(n_carriers)])
+
+
+def sweep_cells(per_cap):
+    """Each capture's decoded cells as (cell, cp, n_rb_dl, n_ports, sfn,
+    phich duration and resource) tuples: what a sweep must equal."""
+    return [[(c.n_id_cell(), c.cp_type, c.n_rb_dl, c.n_ports, c.sfn,
+              c.phich_duration, c.phich_resource) for c in cells]
+            for cells in per_cap]
+
+
+def sweep_path(fset, close) -> dict:
+    """The batched sweep on the card, with the kernels' launch counts set
+    to 0 just before each sweep and read just after: the whole-stack
+    sweep at B = 64 (K1 launched once) and the pipelined sweep at 128 x 32
+    (K1 once per chunk). Checks batched K1 against its plain version at B
+    = 64; the whole-stack sweep against the serial cell_search on every
+    capture and against a device="cpu" run on 4 captures; the pipeline
+    against the whole-stack sweep of the same 128 captures; share_banks;
+    full peak tables redone on the card;
+    the CLI's --batch-sweep --sweep-batch 32, --record then --load.
+    Times the three forms per carrier and K1 batched against 64 single
+    launches; returns the whole-stack sweep to be profiled (its
+    device-busy share) at the end of the script."""
+    import tempfile
+
+    import torch
+
+    from lte_cell_scanner_tpu_torch import kernels
+    from lte_cell_scanner_tpu_torch.ops import xcorr_torch
+    from lte_cell_scanner_tpu_torch.parallel import fc_sweep
+    from lte_cell_scanner_tpu_torch.search.cell_search import cell_search
+    from lte_cell_scanner_tpu_torch.search.pipeline import \
+        pipelined_search_sweep
+
+    dev = torch.device("cuda")
+    out = {"launches": {}}
+    t0 = time.perf_counter()
+    planes128, fcs128, fcp128, truth128 = sweep_stack(SWEEP_PIPE[0])
+    B = SWEEP_B
+    planes, fcs, fcp, truth = (planes128[:B], fcs128[:B], fcp128[:B],
+                               truth128[:B])
+    caps = [fc_sweep._to_complex(planes, b) for b in range(B)]
+    print(f"sweep set-up: {SWEEP_PIPE[0]} carriers "
+          f"{fcs128[0] / 1e6:.1f}-{fcs128[-1] / 1e6:.1f} MHz, {len(fset)} "
+          f"hypotheses, uint8 planes {planes.nbytes / 1e6:.1f} MB at B = "
+          f"{B} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # Batched K1 against its plain version at the sweep's inputs.
+    cap = fc_sweep.device_planes(planes, dev)
+    banks, bank_idx, starts, n_comb, _ = fc_sweep.scan_inputs(
+        fcs, fcp, fset, 1.92e6, cap.shape[2], dev)
+    got = xcorr_torch.xcorr_fold_batch(cap, banks, bank_idx, starts, n_comb)
+    want = xcorr_torch.xcorr_fold_batch_plain(cap, banks, bank_idx, starts,
+                                              n_comb)
+    torch.cuda.synchronize()
+    out["k1_batch_err"] = close(
+        got, want, f"xcorr_fold batched B={B} ({banks.shape[0]} banks) "
+        f"n_f={len(fset)} n_comb={n_comb}")
+    # A bank index out of range gives its capture NaN and reads nothing.
+    bad = torch.tensor([0, banks.shape[0]], dtype=torch.int32, device=dev)
+    got2 = xcorr_torch.xcorr_fold_batch(cap[:2], banks, bad, starts[:2],
+                                        n_comb)
+    check(bool(torch.isnan(got2[1]).all()) and torch.equal(got2[0], got[0]),
+          "xcorr_fold batched: a bank index out of range gives that "
+          "capture NaN, the other capture its result")
+    del got, want, got2
+    # K1 batched in one launch against 64 one-capture launches, CUDA
+    # events, in turns in this call.
+    one = (cap[0], banks[0], starts[0], n_comb)
+    t_b, t_1, t_plain = [], [], []
+    for _ in range(2):
+        t_b.append(cuda_ms(lambda: xcorr_torch.xcorr_fold_batch(
+            cap, banks, bank_idx, starts, n_comb)))
+        t_1.append(cuda_ms(lambda: xcorr_torch.xcorr_fold(*one)))
+    t_plain = cuda_ms(lambda: xcorr_torch.xcorr_fold_batch_plain(
+        cap, banks, bank_idx, starts, n_comb))
+    n_ch = 3 * len(fset)
+    w_re = banks[0, :, :, 0].reshape(n_ch, -1)
+    w_im = banks[0, :, :, 1].reshape(n_ch, -1)
+    weight = torch.cat([torch.stack([w_re, -w_im], 1),
+                        torch.stack([w_im, w_re], 1)], 0)
+    t_conv = cuda_ms(lambda: torch.nn.functional.conv1d(cap, weight))
+    out["k1_batch"] = dict(
+        ms=float(np.median(t_b)), single_ms=float(np.median(t_1)),
+        plain_ms=t_plain, conv_ms=t_conv,
+        bound_ms=B * scan_tc_flops(len(fset), n_comb) / PEAK_TF32_FLOPS
+        * 1e3, runs=t_b, single_runs=t_1)
+    kb = out["k1_batch"]
+    print(f"K1 batched B={B}: {kb['ms']:.4f} ms (runs {t_b}) against 64 x "
+          f"its one-capture {kb['single_ms']:.4f} ms = "
+          f"{B * kb['single_ms']:.4f} ms (runs {t_1}); bound "
+          f"{kb['bound_ms']:.4f} ms ({100 * kb['bound_ms'] / kb['ms']:.1f}%"
+          f"); plain loop {t_plain:.3f} ms; F.conv1d of the stack against "
+          f"one bank {t_conv:.3f} ms", flush=True)
+    del cap, banks, bank_idx, starts
+
+    # The whole-stack sweep, its launches, against the serial search.
+    def whole():
+        return fc_sweep.sharded_search_sweep(planes, fcs, fset,
+                                             fc_prog_list=fcp)
+
+    whole()                                    # warm: banks, constants
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    per_cap, deduped = whole()
+    torch.cuda.synchronize()
+    out["launches"]["whole"] = dict(kernels.LAUNCHES)
+    print(f"sweep path launches, whole stack B={B}: "
+          f"{json.dumps(out['launches']['whole'])}", flush=True)
+    got = sweep_cells(per_cap)
+    want_ids = [[] if t is None else [t] for t in truth]
+    check([[c[:3] for c in cells] for cells in got] == want_ids,
+          f"whole-stack sweep B={B}: every capture gives its cell (271, "
+          f"503, 90, none in turn): {sum(map(bool, got))} of {B} carriers "
+          f"with cells, deduped {sorted(c.n_id_cell() for c in deduped)}")
+    serial = [cell_search(caps[b], fcs[b], fcp[b], f_search_set=fset,
+                          interp="freq_time") for b in range(B)]
+    check(sweep_cells(serial) == got,
+          "whole-stack sweep: each capture's cells equal the serial "
+          "cell_search's (IDs, CP, nRB, ports, SFN, PHICH exact)")
+    cpu4, _ = fc_sweep.sharded_search_sweep(planes[:4], fcs[:4], fset,
+                                            device="cpu",
+                                            fc_prog_list=fcp[:4])
+    fs_diff = max(abs(a.freq_superfine - b.freq_superfine)
+                  for x, y in zip(per_cap[:4], cpu4) for a, b in zip(x, y))
+    check(sweep_cells(cpu4) == got[:4] and fs_diff < 0.5,
+          f"whole-stack sweep: the card's first 4 captures equal a "
+          f"device='cpu' run (freq_superfine within 0.5 Hz: "
+          f"{fs_diff:.4f} Hz)")
+    shared, _ = fc_sweep.sharded_search_sweep(planes, fcs, fset,
+                                              fc_prog_list=fcp,
+                                              share_banks=True)
+    n_banks = {k[-1]: v[0].shape[0] for k, v in
+               fc_sweep._DEV_BANK_CACHE.items() if k[0] == tuple(fcs)}
+    check(sweep_cells(shared) == got,
+          f"share_banks: the same cells ({n_banks.get(True)} banks shared "
+          f"against {n_banks.get(False)} exact)")
+    # A full first-pass table is redone on the card (max_peaks=1 fills
+    # every table that holds a peak): the peaks equal the 64-slot pass's.
+    def peak_rows(peaks):
+        return [[(c.n_id_2, c.ind, c.freq, c.pss_pow) for c in p]
+                for p in peaks]
+
+    first64 = fc_sweep.sharded_fc_sweep(planes[:4], fcs[:4], fset,
+                                        fc_prog_list=fcp[:4])
+    redone = fc_sweep.sharded_fc_sweep(planes[:4], fcs[:4], fset,
+                                       fc_prog_list=fcp[:4], max_peaks=1)
+    check(peak_rows(redone) == peak_rows(first64)
+          and sum(len(p) > 1 for p in redone) >= 3,
+          f"full peak tables (max_peaks=1) redone on the card: the peaks "
+          f"equal the 64-slot pass's ({[len(p) for p in redone]} peaks "
+          f"per capture)")
+
+    # The pipelined sweep at 128 x 32 against the whole stack of the same
+    # 128 captures.
+    def pipe(stage_s=None):
+        return pipelined_search_sweep(planes128, fcs128, fset,
+                                      batch=SWEEP_PIPE[1],
+                                      fc_prog_list=fcp128, stage_s=stage_s)
+
+    pipe()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    p_cap, _ = pipe()
+    torch.cuda.synchronize()
+    out["launches"]["pipelined"] = dict(kernels.LAUNCHES)
+    n_chunks = -(-SWEEP_PIPE[0] // SWEEP_PIPE[1])
+    print(f"sweep path launches, pipelined {SWEEP_PIPE[0]} x "
+          f"{SWEEP_PIPE[1]}: {json.dumps(out['launches']['pipelined'])}",
+          flush=True)
+    w128, _ = fc_sweep.sharded_search_sweep(planes128, fcs128, fset,
+                                            fc_prog_list=fcp128)
+    fs_diff = max([abs(a.freq_superfine - b.freq_superfine)
+                   for x, y in zip(p_cap, w128) for a, b in zip(x, y)]
+                  or [0.0])
+    bit_equal = p_cap == w128
+    check(sweep_cells(p_cap) == sweep_cells(w128) and fs_diff < 0.5,
+          f"pipelined {SWEEP_PIPE[0]} x {SWEEP_PIPE[1]}: each capture's "
+          f"cells equal the whole stack's (freq_superfine within 0.5 Hz: "
+          f"{fs_diff:.3e} Hz; every field bit-equal: {bit_equal})")
+    for path, want_k1 in (("whole", 1), ("pipelined", n_chunks)):
+        lc = out["launches"][path]
+        check(lc["xcorr_fold"] == want_k1
+              and all(lc[k] > 0 for k in SWEEP_KERNELS),
+              f"sweep path ({path}): xcorr_fold launched "
+              f"{lc['xcorr_fold']} time(s) (want {want_k1}: once per "
+              f"chunk), fd_demod {lc['fd_demod']}, viterbi {lc['viterbi']}")
+
+    # The CLI on the card: the batched sweep of the simulator, recorded,
+    # then loaded.
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as tmp:
+        args = [sys.executable, "-m", "lte_cell_scanner_tpu_torch.search.cli",
+                "--freq-start", "739e6", "--freq-end", "745.3e6",
+                "--batch-sweep", "--sweep-batch", "32", "-b", "-d", tmp]
+        tables = []
+        for src in (["--simulate", "-r"], ["--load"]):
+            t1 = time.perf_counter()
+            r = subprocess.run(args + src, cwd=HERE, capture_output=True,
+                               text=True, timeout=600)
+            rows = [ln for ln in r.stdout.splitlines()
+                    if ln.split()[:1] and ln.split()[0].isdigit()]
+            tables.append(rows)
+            print(f"CLI {' '.join(src)} --batch-sweep --sweep-batch 32 "
+                  f"({time.perf_counter() - t1:.1f} s): rc {r.returncode}, "
+                  f"rows {rows}" + (f"\n{r.stderr[-2000:]}" if r.returncode
+                                    else ""), flush=True)
+        check(tables[0][:1] != [] and tables[0][0].split()[0] == "271"
+              and tables[0] == tables[1],
+              "the CLI (--simulate --batch-sweep --sweep-batch 32 -r, "
+              "739.0-745.3 MHz, on the card) finds cell 271, and --load of "
+              "its recordings prints the same table")
+
+    # Times per carrier: the serial loop, the whole stack, the pipeline
+    # (host clock ending in a device sync, median of SWEEP_REPS runs).
+    sub = list(range(min(16, B)))
+    t_serial = host_ms_n(lambda: [cell_search(
+        caps[b], fcs[b], fcp[b], f_search_set=fset, interp="freq_time")
+        for b in sub], SWEEP_REPS)
+    t_whole = host_ms_n(whole, SWEEP_REPS)
+    t_pipe = host_ms_n(pipe, SWEEP_REPS)
+    stages = {}
+    pipe(stages)
+    out["ms_per_carrier"] = dict(
+        serial=t_serial[0] / len(sub), whole=t_whole[0] / B,
+        pipelined=t_pipe[0] / SWEEP_PIPE[0])
+    print(f"sweep ms per carrier (host clock, median of {SWEEP_REPS}): "
+          f"serial cell_search {out['ms_per_carrier']['serial']:.3f} "
+          f"({len(sub)} carriers, runs {t_serial[1]}), whole stack B={B} "
+          f"{out['ms_per_carrier']['whole']:.3f} (runs {t_whole[1]}), "
+          f"pipelined {SWEEP_PIPE[0]} x {SWEEP_PIPE[1]} "
+          f"{out['ms_per_carrier']['pipelined']:.3f} (runs {t_pipe[1]})")
+    print("  pipeline stages (host ms per chunk, one sweep; a stage that "
+          "waits for the card carries the wait): " + ", ".join(
+              f"{k} {v * 1e3 / n_chunks:.3f}" for k, v in stages.items()))
+    # Profiled last in the script (main): a torch.profiler run leaves
+    # launch overhead behind it, which would load every later host-clock
+    # timing of this process.
+    out["profile"] = (whole, t_whole[0])
     return out
 
 
@@ -968,6 +1299,16 @@ def main() -> int:
         check(tools_launches[name] > 0, f"{name} launched "
               f"{tools_launches[name]} time(s) on the tools path")
 
+    # The sweep path.
+    t0 = time.perf_counter()
+    sweep = sweep_path(fset31, close)
+    print(f"sweep path: {time.perf_counter() - t0:.1f} s", flush=True)
+    sweep_launches = {k: sweep["launches"]["whole"][k]
+                      + sweep["launches"]["pipelined"][k]
+                      for k in kernels.KERNELS}
+    path_launches = {"search": launches, "tracker": trk_launches,
+                     "tools": tools_launches, "sweep": sweep_launches}
+
     # ---- 4. timing.
     t_scan = cuda_ms(lambda: xcorr_torch.xcorr_fold(
         cap2, tpl31, starts31, plan31.n_comb_xc))
@@ -1079,6 +1420,8 @@ def main() -> int:
               f"{lb} {np.median([sp.get(lb, 0.0) for sp in splits]) * 1e3:.3f}"
               for lb in labels))
     device_busy(cap_run.cycle, cyc_ms, warm=False)
+    print(f"sweep, whole stack B={SWEEP_B}:")
+    device_busy(*sweep["profile"])
     mibs = [c.mib_decode_successes for c in cap_run.cells]
     check(min(mibs) > 0 and all(c.health == 1.0 for c in cap_run.cells),
           f"capacity run: every replica decodes its MIB (min {min(mibs)}, "
@@ -1146,14 +1489,13 @@ def main() -> int:
              source="lte_cell_scanner_tpu_torch/csrc/xcorr_fold.cu",
              replaces="lte_cell_scanner_tpu/ops/xcorr_pallas.py:124 (K1), "
                       "lte_cell_scanner_tpu/ops/xcorr_pallas.py:51 (K2)",
-             launches=launches["xcorr_fold"], max_abs_err=scan_err["31-hyp"],
+             max_abs_err=scan_err["31-hyp"],
              ms=t_scan, plain_ms=t_scan_plain, bound_ms=scan_b[0],
              bound_by=scan_b[1], library_ms=t_conv,
              fma_bound_ms=scan_fma_b[0]),
         dict(name="xcorr_fold3", route="cuda",
              source="lte_cell_scanner_tpu_torch/csrc/xcorr_fold.cu",
              replaces="lte_cell_scanner_tpu/ops/xcorr_pallas.py:174 (K3)",
-             launches=tools_launches["xcorr_fold3"],
              max_abs_err=scan3_err["31-hyp"], ms=t_scan3,
              plain_ms=t_scan3_plain, bound_ms=scan3_b[0],
              bound_by=scan3_b[1], library_ms=t_conv3["f32"],
@@ -1162,7 +1504,6 @@ def main() -> int:
              source="lte_cell_scanner_tpu_torch/csrc/xcorr_fold.cu",
              replaces="lte_cell_scanner_tpu/ops/xcorr_pallas.py:174 (K3, "
                       "bf16 mode)",
-             launches=tools_launches["xcorr_fold3_bf16"],
              max_abs_err=scan3_err["bf16"], ms=t_scan3_bf,
              plain_ms=t_scan3_bf_plain, bound_ms=scan3_bf_b[0],
              bound_by=scan3_bf_b[1], library_ms=t_conv3["bf16"],
@@ -1170,24 +1511,35 @@ def main() -> int:
         dict(name="fd_demod", route="cuda",
              source="lte_cell_scanner_tpu_torch/csrc/fd_demod.cu",
              replaces="lte_cell_scanner_tpu/ops/fd_demod_pallas.py:58 (K4)",
-             launches=launches["fd_demod"], max_abs_err=fd_err, ms=t_fd,
+             max_abs_err=fd_err, ms=t_fd,
              plain_ms=t_fd_plain, bound_ms=fd_b[0], bound_by=fd_b[1],
              library_ms=t_fft[n_win]),
         dict(name="fd_demod_stream", route="cuda",
              source="lte_cell_scanner_tpu_torch/csrc/fd_demod.cu",
              replaces="lte_cell_scanner_tpu/ops/fd_demod_pallas.py:58 (K4, "
                       "tracker mode)",
-             launches=trk_launches["fd_demod_stream"], max_abs_err=str_err,
+             max_abs_err=str_err,
              ms=t_str, plain_ms=t_str_plain, bound_ms=str_b[0],
              bound_by=str_b[1], library_ms=t_fft[n_str]),
         dict(name="viterbi", route="cuda",
              source="lte_cell_scanner_tpu_torch/csrc/viterbi.cu",
              replaces="lte_cell_scanner_tpu/models/viterbi_pallas.py:63 (K5)",
-             launches=launches["viterbi"] + trk_launches["viterbi"],
              max_abs_err=vit_err, ms=t_vit,
              plain_ms=t_vit_plain, bound_ms=vit_b[0], bound_by=vit_b[1],
              library_ms=None),
     ]
+    # Each kernel's launches over the four paths' runs, and by path.
+    for r in rows:
+        by_path = {p: n[r["name"]] for p, n in path_launches.items()
+                   if n[r["name"]]}
+        r["launches"] = sum(by_path.values())
+        r["launches_by_path"] = by_path
+    kb = sweep["k1_batch"]
+    rows[0].update(batch64_ms=kb["ms"], batch64_single_ms=kb["single_ms"],
+                   batch64_plain_ms=kb["plain_ms"],
+                   batch64_bound_ms=kb["bound_ms"],
+                   batch64_library_ms=kb["conv_ms"],
+                   batch64_max_abs_err=sweep["k1_batch_err"])
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "

@@ -17,7 +17,10 @@
 //
 // Two kernels:
 //
-// - K1/K2 (launcher xcorr_fold_launch): tensor cores, mma.sync m16n8k8
+// - K1/K2 (launcher xcorr_fold_launch, over a stack of B captures, each
+//   with its own fold starts and a template bank picked by index, as the
+//   TPU sweep maps K1 over its captures with a per-capture bank row):
+//   tensor cores, mma.sync m16n8k8
 //   TF32 with 3xTF32 products. Hypotheses go 8 to a group (24 channels,
 //   48 real output columns; n_f is padded with zero templates). For fold m
 //   and group h, base = min_{f in h} starts[f, m], d_f = starts[f, m] -
@@ -58,10 +61,12 @@
 // run at well under half of it (its time against the bound: PERF.md).
 // Design:
 // - A block of 4 warps owns 160 lags x one group (24 channels, 8
-//   hypotheses; 60 x ceil(n_f / 8) blocks, 240 at 31 hypotheses, so the
-//   132 SMs carry 1 or 2 blocks each). Warps: 2 along the lags, 2 along
-//   the columns, each 5 m-tiles x 3 n-tiles, 45 mma per k-step against 10
-//   A and 6 B fragment values.
+//   hypotheses) of one capture: 60 x ceil(n_f / 8) x B blocks. One capture
+//   at 31 hypotheses is 240 blocks, fewer than the 396 that the 132 SMs
+//   hold at once (3 each at 157 registers a thread); a sweep's stack of 64
+//   captures is 15,360 blocks in one launch. Warps: 2 along
+//   the lags, 2 along the columns, each 5 m-tiles x 3 n-tiles, 45 mma per
+//   k-step against 10 A and 6 B fragment values.
 // - The group's templates sit in shared memory (26.3 KB, unsplit). Every
 //   B value is one predicated load at (k0 + t)/2 - d_f, with a sign and
 //   plane fixed per lane, split in registers. The split rounds with two
@@ -160,16 +165,38 @@ __device__ __forceinline__ void plan_fold(const int* __restrict__ starts,
     }
 }
 
-// cap (2, n_cap) re/im; tpl (n_f, 3, 2, 137); starts (n_f, n_comb);
-// out (n_f * 3, 9600). Grid (9600 / kLagTile, ceil(n_f / 8)): block (x, y)
+// cap (B, 2, n_cap) re/im; tpl (n_bank, n_f, 3, 2, 137); bank_idx (B,),
+// or null for bank b of capture b; starts (B, n_f, n_comb); out (B, n_f *
+// 3, 9600). Grid (9600 / kLagTile, ceil(n_f / 8), B): block (x, y, z)
 // owns lags [x kLagTile, +kLagTile) of the 8 hypotheses (24 channels) of
-// group y.
+// group y of capture z. A bank index outside [0, n_bank) reads nothing:
+// the block writes NaN.
 __global__ void __launch_bounds__(kTcThreads)
 xcorr_fold_tc_kernel(const float* __restrict__ cap, int n_cap,
-                     const float* __restrict__ tpl,
+                     const float* __restrict__ tpl, int n_bank,
+                     const int* __restrict__ bank_idx,
                      const int* __restrict__ starts, int n_f, int n_comb,
                      float* __restrict__ out)
 {
+    // This block's capture, its bank, fold starts and output.
+    {
+        const int b = blockIdx.z;
+        const int bank = bank_idx != nullptr ? bank_idx[b] : b;
+        out += (size_t)b * 3 * n_f * kHalfFrame;
+        if ((unsigned)bank >= (unsigned)n_bank) {
+            const int c0 = 3 * blockIdx.y * kGroup;
+            const int nc = min(3 * kGroup, 3 * n_f - c0);
+            for (int i = threadIdx.x; i < nc * kLagTile; i += kTcThreads)
+                out[(size_t)(c0 + i / kLagTile) * kHalfFrame
+                    + blockIdx.x * kLagTile + i % kLagTile] = __int_as_float(
+                    0x7fc00000);
+            return;
+        }
+        cap += (size_t)b * 2 * n_cap;
+        tpl += (size_t)bank * n_f * 3 * 2 * kTaps;
+        starts += (size_t)b * n_f * n_comb;
+    }
+
     __shared__ float ts[kTplFloats];       // [24 channels][2 planes][137]
     __shared__ float xh[2 * kSpan];        // tf32 hi, re/im interleaved
     __shared__ float xl[2 * kSpan];        // tf32 lo
@@ -614,15 +641,19 @@ xcorr_fold3_tc_kernel(const T* __restrict__ cap, int n_cap,
 
 }  // namespace
 
-// cap (2, n_cap) re/im; tpl (n_f, 3, 2, 137).
+// cap (n_batch, 2, n_cap) re/im; tpl (n_bank, n_f, 3, 2, 137); bank_idx
+// (n_batch,) in [0, n_bank), or null (n_bank = n_batch); starts (n_batch,
+// n_f, n_comb); out (n_batch, n_f * 3, 9600). One capture is n_batch = 1.
 extern "C" int xcorr_fold_launch(const float* cap, int n_cap,
-                                 const float* tpl, const int* starts,
-                                 int n_f, int n_comb, float* out,
+                                 const float* tpl, int n_bank,
+                                 const int* bank_idx, const int* starts,
+                                 int n_f, int n_comb, int n_batch, float* out,
                                  void* stream)
 {
-    const dim3 grid(kHalfFrame / kLagTile, (n_f + kGroup - 1) / kGroup);
+    const dim3 grid(kHalfFrame / kLagTile, (n_f + kGroup - 1) / kGroup,
+                    n_batch);
     xcorr_fold_tc_kernel<<<grid, kTcThreads, 0, (cudaStream_t)stream>>>(
-        cap, n_cap, tpl, starts, n_f, n_comb, out);
+        cap, n_cap, tpl, n_bank, bank_idx, starts, n_f, n_comb, out);
     return (int)cudaGetLastError();
 }
 

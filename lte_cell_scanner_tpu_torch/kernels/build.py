@@ -34,10 +34,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _XCORR_ARGS = (_P, _I, _P, _P, _I, _I, _P, _P)
+_XCORR_BATCH_ARGS = (_P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P)
 _FD_DEMOD_ARGS = (_P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P)
 # Source, launcher name and argument types of each kernel's C interface.
 _SIGNATURES = {
-    "xcorr_fold": ("xcorr_fold", "xcorr_fold_launch", _XCORR_ARGS),
+    "xcorr_fold": ("xcorr_fold", "xcorr_fold_launch", _XCORR_BATCH_ARGS),
     "xcorr_fold3": ("xcorr_fold", "xcorr_fold3_launch", _XCORR_ARGS),
     "xcorr_fold3_bf16": ("xcorr_fold", "xcorr_fold3_bf16_launch",
                          _XCORR_ARGS),

@@ -22,7 +22,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,6 +32,7 @@ from lte_cell_scanner_tpu_torch.constants import FS_LTE, HALF_FRAME
 from lte_cell_scanner_tpu_torch.models.cell import Cell
 from lte_cell_scanner_tpu_torch.models.pss import pss_fd
 from lte_cell_scanner_tpu_torch.models.sss import sss_fd_all
+from lte_cell_scanner_tpu_torch.utils.device import HostFetch, upload
 from lte_cell_scanner_tpu_torch.utils.dsp import wrap
 
 N_REP = 16   # PSS repetitions in an 80 ms capture (ceil(153600/9600))
@@ -134,10 +135,17 @@ class SyncPlan:
     valid: np.ndarray        # (B,) bool
 
 
-def sync_plan(cells: Sequence[Cell], n_cap: int) -> SyncPlan:
+def sync_plan(cells: Sequence[Cell], n_cap: int,
+              cap_bases: Optional[Sequence[int]] = None) -> SyncPlan:
     """Float64 window-location plan for a batch of candidate peaks (the
     index arithmetic of the host sss_detect / pss_sss_foe, native mode).
-    fc/fs are taken per cell."""
+    fc/fs are taken per cell.
+
+    ``n_cap`` is the length of ONE capture. ``cap_bases`` (per cell)
+    offsets every window into a stack of captures of that length laid end
+    to end, so that a whole sweep's candidates run in one program; the
+    range checks stay within each cell's own capture.
+    """
     n = len(cells)
     R = _n_rep_for(n_cap)
     p = SyncPlan(
@@ -161,6 +169,8 @@ def sync_plan(cells: Sequence[Cell], n_cap: int) -> SyncPlan:
     fs_prog = np.array([c.fs_programmed for c in cells], np.float64)
     freq = np.array([c.freq for c in cells], np.float64)
     ind = np.array([c.ind for c in cells], np.float64)
+    base_v = (np.zeros(n, np.int64) if cap_bases is None
+              else np.asarray(list(cap_bases)[:n], np.int64))
     ii = np.arange(R, dtype=np.float64)[None, :]            # (1, R)
 
     k_factor = (fc_req - freq) / fc_prog
@@ -174,7 +184,7 @@ def sync_plan(cells: Sequence[Cell], n_cap: int) -> SyncPlan:
     pss_loc = peak_loc[:, None] + step[:, None] * ii
     locs = np.round(pss_loc).astype(np.int64) + 9 - 2
     rep_ok = (ii <= n_in_range[:, None]) & (locs + 128 <= n_cap)
-    p.pss_idx[:] = np.where(rep_ok, locs, 0)
+    p.pss_idx[:] = np.where(rep_ok, locs + base_v[:, None], 0)
     p.rep_mask[:] = rep_ok
     p.foc[:] = -freq
     p.inv_fs[:] = 1.0 / fs_eff
@@ -213,9 +223,10 @@ def sync_plan(cells: Sequence[Cell], n_cap: int) -> SyncPlan:
             loc_set = first_sss[:, None] + sss_step[:, None] * ii
             sss_ok = ii <= n_sss_f[:, None]
             sss_locs = np.round(loc_set).astype(np.int64)
-            p.foe_sss[:, oi, ci] = np.where(sss_ok, sss_locs, 0)
-            p.foe_pss[:, oi, ci] = np.where(sss_ok, sss_locs + dist[:, None],
-                                            0)
+            p.foe_sss[:, oi, ci] = np.where(
+                sss_ok, sss_locs + base_v[:, None], 0)
+            p.foe_pss[:, oi, ci] = np.where(
+                sss_ok, sss_locs + dist[:, None] + base_v[:, None], 0)
             p.foe_mask[:, oi, ci] = sss_ok
             sn = np.where((ii.astype(np.int64) % 2) == 0, sn0[:, None],
                           10 - sn0[:, None])
@@ -302,16 +313,17 @@ def _device_tables(device: torch.device):
             put(_smooth13_mat()).T, put(_sss_tables()))
 
 
-def _sync_device(cap: torch.Tensor, plan, thresh2_n_sigma: float
-                 ) -> Dict[str, torch.Tensor]:
+def _sync_device(cap: torch.Tensor, plan, thresh2_n_sigma: float,
+                 non_blocking: bool = False) -> Dict[str, torch.Tensor]:
     """The batched sync program. cap (n_cap, 2) f32 on the device; plan a
     SyncPlan (or the JAX package's, which has the same fields). Returns
     (B,)-shaped n_id_1, cp_sel, ord_sel, detected, dfreq, lik_final,
-    lik_mean, lik_std."""
+    lik_mean, lik_std. ``non_blocking`` uploads the plan without waiting
+    for the stream (:func:`upload`)."""
     dev = cap.device
 
     def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return upload(a, dev, non_blocking)
 
     pss_idx, rep_mask = put(plan.pss_idx), put(plan.rep_mask)
     foc, inv_fs, n_id_2 = put(plan.foc), put(plan.inv_fs), \
@@ -406,27 +418,50 @@ def _sync_device(cap: torch.Tensor, plan, thresh2_n_sigma: float
 # Host wrapper.
 
 
+@dataclasses.dataclass
+class SyncPending:
+    """A sync program in flight: its outputs (device tensors, or a
+    :class:`HostFetch` of them when deferred), its plan and its cells."""
+
+    out: object
+    plan: Optional[SyncPlan]
+    cells: List[Cell]
+
+
 def sss_foe_batch(cells: List[Cell], cap: torch.Tensor,
-                  thresh2_n_sigma: float) -> List[Cell]:
+                  thresh2_n_sigma: float, n_cap: Optional[int] = None,
+                  cap_bases: Optional[Sequence[int]] = None,
+                  defer: bool = False):
     """SSS detection + fine FOE for every candidate peak.
 
-    cap (n_cap, 2) f32 re/im on the device. Returns new Cell records:
-    detected peaks carry n_id_1/cp_type/frame_start/freq_fine, rejected
-    ones n_id_1 == -1 (the contract of the host sss_detect + pss_sss_foe).
+    cap (n, 2) f32 re/im on the device: one capture, or with ``cap_bases``
+    a stack of captures of length ``n_cap`` each (default: cap's length).
+    Returns new Cell records: detected peaks carry n_id_1/cp_type/
+    frame_start/freq_fine, rejected ones n_id_1 == -1 (the contract of the
+    host sss_detect + pss_sss_foe). ``defer=True`` returns a
+    :class:`SyncPending` whose results are on their way to the host
+    (:class:`HostFetch`); :func:`finish_sync_batch` collects it.
     """
     if not cells:
+        return SyncPending(None, None, []) if defer else []
+    plan = sync_plan(cells, cap.shape[0] if n_cap is None else n_cap,
+                     cap_bases)
+    out = _sync_device(cap, plan, thresh2_n_sigma, non_blocking=defer)
+    if defer:
+        return SyncPending(HostFetch(out), plan, list(cells))
+    return finish_sync_batch(SyncPending(out, plan, list(cells)))
+
+
+def finish_sync_batch(pending: SyncPending) -> List[Cell]:
+    """Fetch the results of a sync program (deferred or not) and unpack
+    them into Cell records."""
+    if not pending.cells:
         return []
-    plan = sync_plan(cells, cap.shape[0])
-    out = _sync_device(cap, plan, thresh2_n_sigma)
-    return finish_sync_batch(out, plan, cells)
-
-
-def finish_sync_batch(out: Dict[str, torch.Tensor], plan,
-                      cells: Sequence[Cell]) -> List[Cell]:
-    """Fetch the device results and unpack them into Cell records."""
-    o = {k: v.cpu().numpy() for k, v in out.items()}
+    plan = pending.plan
+    o = (pending.out.wait() if isinstance(pending.out, HostFetch)
+         else {k: v.cpu().numpy() for k, v in pending.out.items()})
     res: List[Cell] = []
-    for b, cell in enumerate(cells):
+    for b, cell in enumerate(pending.cells):
         c = dataclasses.replace(cell)
         if o["detected"][b]:
             c.n_id_1 = int(o["n_id_1"][b])

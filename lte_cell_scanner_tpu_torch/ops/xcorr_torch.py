@@ -192,26 +192,95 @@ def xcorr_fold(cap2: torch.Tensor, tpl: torch.Tensor, starts: torch.Tensor,
     (n_f, n_comb_xc) i32 with every fold window inside the capture
     (n_comb_xc_for). Returns single (3, 9600, n_f) f32, the
     ``xc_incoherent_single`` of the reference. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel.
+    version; a CUDA tensor launches the kernel (one capture of
+    :func:`xcorr_fold_batch`'s launch).
     """
-    return _fold_call("xcorr_fold", 2, torch.float32, cap2, tpl, starts,
-                      n_comb_xc)
+    if cap2.device.type == "cpu":
+        n_f = tpl.shape[0]
+        return xcorr_fold_plain(cap2, tpl, starts, n_comb_xc).view(
+            n_f, 3, HALF_FRAME).permute(1, 2, 0)
+    return _fold_batch_launch(cap2[None], tpl[None], None, starts[None],
+                              n_comb_xc)[0]
 
 
-def _fold_call(name, n_planes, dtype, cap, tpl, starts, n_comb_xc):
-    """Run kernel ``name`` (``n_planes`` capture and template planes of
+def xcorr_fold_batch_plain(cap: torch.Tensor, tpl_bank: torch.Tensor,
+                           bank_idx: torch.Tensor, starts: torch.Tensor,
+                           n_comb_xc: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`xcorr_fold_batch`: a loop of
+    :func:`xcorr_fold_plain` over the captures. Returns (B, 3, 9600, n_f)."""
+    n_f = tpl_bank.shape[1]
+    return torch.stack([
+        xcorr_fold_plain(cap[b], tpl_bank[int(bank_idx[b])], starts[b],
+                         n_comb_xc).view(n_f, 3, HALF_FRAME).permute(1, 2, 0)
+        for b in range(cap.shape[0])])
+
+
+def xcorr_fold_batch(cap: torch.Tensor, tpl_bank: torch.Tensor,
+                     bank_idx: torch.Tensor, starts: torch.Tensor,
+                     n_comb_xc: int) -> torch.Tensor:
+    """Fused correlation + incoherent fold of a stack of B captures, in one
+    launch of the ``xcorr_fold`` kernel.
+
+    cap (B, 2, n_cap) f32 re/im planes; tpl_bank (n_bank, n_f, 3, 2, 137)
+    f32; bank_idx (B,) i32, the bank of each capture, in [0, n_bank) (on
+    the card an index outside it gives that capture NaN, without a read;
+    checking it here would wait for the card); starts (B, n_f, n_comb_xc)
+    i32, every fold window inside its capture. Returns (B, 3, 9600, n_f)
+    f32. A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel.
+    """
+    if cap.device.type == "cpu":
+        return xcorr_fold_batch_plain(cap, tpl_bank, bank_idx, starts,
+                                      n_comb_xc)
+    _check(bank_idx, torch.int32, 1, "bank_idx")
+    if bank_idx.shape[0] != cap.shape[0] or bank_idx.device != cap.device:
+        raise ValueError(f"xcorr_fold_batch: want bank_idx ({cap.shape[0]},)"
+                         f" on {cap.device}, got {tuple(bank_idx.shape)} on "
+                         f"{bank_idx.device}")
+    return _fold_batch_launch(cap, tpl_bank, bank_idx, starts, n_comb_xc)
+
+
+def _fold_batch_launch(cap, tpl_bank, bank_idx, starts, n_comb_xc):
+    """Check the arguments of the ``xcorr_fold`` kernel and launch it over
+    the B captures; returns (B, 3, 9600, n_f) f32."""
+    name = "xcorr_fold"
+    _check(cap, torch.float32, 3, "cap")
+    _check(tpl_bank, torch.float32, 5, "tpl")
+    _check(starts, torch.int32, 3, "starts")
+    B, n_f = cap.shape[0], tpl_bank.shape[1]
+    if cap.shape[1] != 2 or tpl_bank.shape[2:] != (3, 2, PSS_TD_LEN) \
+            or starts.shape != (B, n_f, n_comb_xc):
+        raise ValueError(f"{name}: bad shapes {tuple(cap.shape)} "
+                         f"{tuple(tpl_bank.shape)} {tuple(starts.shape)}")
+    if not (cap.device == tpl_bank.device == starts.device):
+        raise ValueError(f"{name}: tensors on different devices")
+    fold = torch.empty((B, 3 * n_f, HALF_FRAME), dtype=torch.float32,
+                       device=cap.device)
+    # The C launcher launches on the runtime's current device.
+    with launch_device(cap.device):
+        code = launcher(name)(
+            cap.data_ptr(), cap.shape[2], tpl_bank.data_ptr(),
+            tpl_bank.shape[0],
+            None if bank_idx is None else bank_idx.data_ptr(),
+            starts.data_ptr(), n_f, n_comb_xc, B, fold.data_ptr(),
+            torch.cuda.current_stream(cap.device).cuda_stream)
+    check_launch(name, code)
+    LAUNCHES[name] += 1
+    return fold.view(B, n_f, 3, HALF_FRAME).permute(0, 2, 3, 1)
+
+
+def _fold_call(name, dtype, cap, tpl, starts, n_comb_xc):
+    """Run K3's kernel ``name`` (3 capture and template planes of
     ``dtype``), or its plain version for a CPU tensor; returns
     (3, 9600, n_f) f32."""
     n_f = tpl.shape[0]
     if cap.device.type == "cpu":
-        plain = xcorr_fold_plain if n_planes == 2 else xcorr_fold3_plain
-        fold = plain(cap, tpl, starts, n_comb_xc)
+        fold = xcorr_fold3_plain(cap, tpl, starts, n_comb_xc)
     else:
         _check(cap, dtype, 2, "cap")
         _check(tpl, dtype, 4, "tpl")
         _check(starts, torch.int32, 2, "starts")
-        if cap.shape[0] != n_planes \
-                or tpl.shape[1:] != (3, n_planes, PSS_TD_LEN) \
+        if cap.shape[0] != 3 or tpl.shape[1:] != (3, 3, PSS_TD_LEN) \
                 or starts.shape != (n_f, n_comb_xc):
             raise ValueError(f"{name}: bad shapes {tuple(cap.shape)} "
                              f"{tuple(tpl.shape)} {tuple(starts.shape)}")
@@ -302,7 +371,7 @@ def xcorr_fold3(cap3: torch.Tensor, tpl: torch.Tensor, starts: torch.Tensor,
                          f"{tpl.dtype}")
     name = "xcorr_fold3_bf16" if cap3.dtype == torch.bfloat16 \
         else "xcorr_fold3"
-    return _fold_call(name, 3, cap3.dtype, cap3, tpl, starts, n_comb_xc)
+    return _fold_call(name, cap3.dtype, cap3, tpl, starts, n_comb_xc)
 
 
 def karatsuba_inputs(cap2: torch.Tensor, tpl: torch.Tensor,
@@ -324,24 +393,26 @@ def _check(t: torch.Tensor, dtype, ndim: int, name: str) -> None:
 
 
 def _delay_spread(single: torch.Tensor, ds_comb_arm: int) -> torch.Tensor:
+    """Mean over +-ds_comb_arm cyclic lags; the lag axis is -2 of
+    (..., 9600, n_f)."""
     out = single
     for t in range(1, ds_comb_arm + 1):
-        out = out + torch.roll(single, t, 1) + torch.roll(single, -t, 1)
+        out = out + torch.roll(single, t, -2) + torch.roll(single, -t, -2)
     return out / (2 * ds_comb_arm + 1)
 
 
 def win_sum(x: torch.Tensor, w: int) -> torch.Tensor:
-    """Sliding w-window sum by length doubling: S_{a+b}[k] = S_a[k] +
-    S_b[k+a], the balanced tree of the JAX scan (a cumsum difference
-    would lose float32 accuracy over 150k samples)."""
+    """Sliding w-window sum along the last axis by length doubling:
+    S_{a+b}[k] = S_a[k] + S_b[k+a], the balanced tree of the JAX scan (a
+    cumsum difference would lose float32 accuracy over 150k samples)."""
     memo = {1: x}
 
     def s(n):
         if n not in memo:
             h = n // 2
             a, b = s(h), s(n - h)
-            ln = x.shape[0] - n + 1
-            memo[n] = a[:ln] + b[h:h + ln]
+            ln = x.shape[-1] - n + 1
+            memo[n] = a[..., :ln] + b[..., h:h + ln]
         return memo[n]
 
     return s(w)
@@ -349,14 +420,27 @@ def win_sum(x: torch.Tensor, w: int) -> torch.Tensor:
 
 def _sp_est_from_pw(pw: torch.Tensor, n_comb_sp: int) -> torch.Tensor:
     """Sliding 274-sample mean power folded into one half-frame, rolled
-    by 137 to align with the correlation peaks."""
+    by 137 to align with the correlation peaks: (..., n_cap) ->
+    (..., 9600)."""
     n_sp = n_comb_sp * HALF_FRAME
-    sp = (win_sum(pw, 2 * PSS_TD_LEN)[:n_sp] / 274.0).view(
-        n_comb_sp, HALF_FRAME)
-    acc = sp[0]
+    sp = (win_sum(pw, 2 * PSS_TD_LEN)[..., :n_sp] / 274.0).reshape(
+        *pw.shape[:-1], n_comb_sp, HALF_FRAME)
+    acc = sp[..., 0, :]
     for i in range(1, n_comb_sp):
-        acc = acc + sp[i]
-    return torch.roll(acc / n_comb_sp, PSS_TD_LEN)
+        acc = acc + sp[..., i, :]
+    return torch.roll(acc / n_comb_sp, PSS_TD_LEN, -1)
+
+
+def _collapse(single, cap2, ds_comb_arm, n_comb_sp):
+    """Delay spread, signal power and the frequency collapse of one scan or
+    of a stack: single (..., 3, 9600, n_f), cap2 (..., 2, n_cap) ->
+    (packed (..., 7, 9600), inc)."""
+    inc = _delay_spread(single, ds_comb_arm)
+    sp_inc = _sp_est_from_pw(cap2[..., 0, :] ** 2 + cap2[..., 1, :] ** 2,
+                             n_comb_sp)
+    pow_ = inc.amax(dim=-1)
+    frq = inc.argmax(dim=-1).to(pow_.dtype)
+    return torch.cat([pow_, frq, sp_inc[..., None, :]], dim=-2), inc
 
 
 def xcorr_core(cap2: torch.Tensor, plan: ScanPlan, ds_comb_arm: int):
@@ -377,9 +461,18 @@ def xcorr_core(cap2: torch.Tensor, plan: ScanPlan, ds_comb_arm: int):
     else:
         cap_x = round_bf16(cap2) if plan.precision == "bf16" else cap2
         single = xcorr_fold(cap_x, tpl, starts, plan.n_comb_xc)
-    inc = _delay_spread(single, ds_comb_arm)
-    sp_inc = _sp_est_from_pw(cap2[0] ** 2 + cap2[1] ** 2, plan.n_comb_sp)
-    pow_ = inc.amax(dim=2)
-    frq = inc.argmax(dim=2).to(pow_.dtype)
-    packed = torch.cat([pow_, frq, sp_inc[None]], dim=0)
+    packed, inc = _collapse(single, cap2, ds_comb_arm, plan.n_comb_sp)
     return packed, single, inc
+
+
+def xcorr_core_batch(cap: torch.Tensor, tpl_bank: torch.Tensor,
+                     bank_idx: torch.Tensor, starts: torch.Tensor,
+                     n_comb_xc: int, n_comb_sp: int, ds_comb_arm: int):
+    """Full scan of a stack of B captures (layout "tea", float32): one
+    :func:`xcorr_fold_batch` launch, then delay spread, signal power and
+    the collapse over the leading axis. Arguments as
+    :func:`xcorr_fold_batch`. Returns (packed (B, 7, 9600), single
+    (B, 3, 9600, n_f))."""
+    single = xcorr_fold_batch(cap, tpl_bank, bank_idx, starts, n_comb_xc)
+    packed, _ = _collapse(single, cap, ds_comb_arm, n_comb_sp)
+    return packed, single

@@ -106,7 +106,7 @@ def test_mib_stages_match_jax(candidates, interp):
                                interp=interp)
     ref = mib_jax.finish_mib_batch(mib_jax.MibPending(
         full(jnp.asarray(cap32), u8, f32, *tabs), plan, cells))
-    got = mib_torch.finish_mib_batch(out, plan)[:n]
+    got = mib_torch.finish_mib_batch(mib_torch.MibPending(out, plan))[:n]
     for g, r in zip(got, ref):
         assert (g.n_rb_dl, g.n_ports, g.sfn, g.phich_duration,
                 g.phich_resource) == (r.n_rb_dl, r.n_ports, r.sfn,

@@ -81,7 +81,8 @@ def test_sync_matches_jax(n_subframes, cp_type, n_id_1, n_id_2, foff):
     assert want[3, :n].any()                       # a peak was detected
 
     # The host-side unpacking: frame_start is picked from the f64 plan.
-    cells = sync_torch.finish_sync_batch(got, plan, peaks)
+    cells = sync_torch.finish_sync_batch(
+        sync_torch.SyncPending(got, plan, peaks))
     ref_cells = sync_jax.finish_sync_batch(sync_jax.SyncPending(
         jnp.asarray(want.astype(np.float32)), plan, peaks))
     for c, r in zip(cells, ref_cells):
