@@ -4,11 +4,13 @@ NVIDIA card.
 
     python3 chip_smoke.py
 
-Four paths of the port run on the card: the cell search on one capture
+Five paths of the port run on the card: the cell search on one capture
 (search/cell_search.py), the batched tracker engine (tracker/,
 LTETracker), the tools (tools/: bench_scan, bench_viterbi, bench_decode,
-bench_demod, bench_tracker, mc_search) and the batched fc sweep
-(parallel/fc_sweep.py, search/pipeline.py, the CLI's --batch-sweep).
+bench_demod, bench_tracker, mc_search, bench_wideband), the batched fc
+sweep (parallel/fc_sweep.py, search/pipeline.py, the CLI's
+--batch-sweep) and the wideband front end (io/frontend.py,
+search/wideband.py, the CLI's --wideband).
 Phases; the script exits non-zero if any fails:
 
 1. Print the card (nvidia-smi name and power limit) and build the CUDA
@@ -60,7 +62,19 @@ Phases; the script exits non-zero if any fails:
    --sweep-batch 32 with --simulate -r, then --load; the sweep's ms per
    carrier (serial, whole stack, pipelined; host clock, median of 5), K1
    batched against 64 one-capture launches (CUDA events) and the whole
-   stack's device-busy share.
+   stack's device-busy share; bench_wideband at 16 and 296 carriers; the
+   wideband path: one 30.72 Msps recording of 80 ms around 739 MHz with
+   four planted cells (271 at 741.0, 503 at 732.7, 90 at 726.9 and 302 at
+   753.8 MHz, the top usable carrier), its 296 carriers channelized in one
+   call (held to the float64 decimation and the per-carrier form) and
+   swept as one stack (K1 once over 296 captures, checked against its
+   plain version), every plant decoded as planted and no cell more than 1
+   MHz from one, the plants and two empty carriers equal to a
+   float64-channelized sweep and a device="cpu" run, share_banks, the
+   CLI's --wideband on an .it file and on raw bytes; the wideband sweep's
+   ms per carrier and its stages (host clock, median of 5), the
+   channelizer and K1 at B = 296 against their bounds (CUDA events), peak
+   device memory and the device-busy share.
 4. Time each kernel, its plain version and its library yardstick (K1:
    F.conv1d of the 2x2 blocks; K3: the grouped F.conv1d of its three real
    correlations; K4: torch.fft.fft and a dense f32 matmul, both partial;
@@ -73,7 +87,7 @@ Phases; the script exits non-zero if any fails:
    median cycle), its stage split and its device-busy share; and the
    host cost of a launch's device guard.
 
-Each kernel's ``launches`` in the kernels line is the sum over the four
+Each kernel's ``launches`` in the kernels line is the sum over the five
 paths' runs, ``launches_by_path`` the split. The line before the last is
 {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
@@ -133,6 +147,28 @@ SWEEP_B, SWEEP_PIPE, SWEEP_REPS, SWEEP_SEED = 64, (128, 32), 5, 11
 SWEEP_CELL90 = dict(n_id_1=30, n_id_2=0, snr_db=15.0, freq_offset=6e3,
                     n_rb_dl=75, seed=7)
 SWEEP_KERNELS = ("xcorr_fold", "fd_demod", "viterbi")
+
+# The wideband path (search/wideband.py): one 30.72 Msps recording of 80 ms
+# (n_wide = (153600 + 10) x 16 samples, the channelizer's FIR start-up
+# included) centred at 739 MHz; all 296 carriers of its 100 kHz raster
+# (724.3-753.8 MHz; ppm 100: 31 hypotheses) channelized in one call and
+# swept as one stack. Four cells are planted, each a 90-subframe simulator
+# capture upsampled x16 (interpft) and shifted to its carrier; the last on
+# the top usable carrier, at the FIR's edge. Each plant: (carrier,
+# synthetic_capture arguments, decoded (cell, CP, nRB, ports, SFN, PHICH
+# duration and resource), planted frequency offset).
+WB_FS, WB_CENTER, WB_DECIM = 30.72e6, 739e6, 16
+WB_N = (153600 + 10) * WB_DECIM
+WB_PLANTS = (
+    (741.0e6, CAPTURES["normal"], (271, "normal", 50, 1, 64, "normal", 1.0)),
+    (732.7e6, CAPTURES["extended"],
+     (503, "extended", 100, 1, 64, "normal", 1.0)),
+    (726.9e6, dict(SWEEP_CELL90, sfn_start=100),
+     (90, "normal", 75, 1, 100, "normal", 1.0)),
+    (753.8e6, dict(n_id_1=100, n_id_2=2, cp_type="normal", snr_db=10.0,
+                   freq_offset=-3e3, n_rb_dl=25, sfn_start=300, seed=13),
+     (302, "normal", 25, 1, 300, "normal", 1.0)))
+WB_EMPTY = (739.0e6, 745.5e6)     # more than 1 MHz from every plant
 
 # Flops of csrc/fd_demod.cu's 128-point FFT per window: 8 in-register
 # DFT_16 (188 flops each: 16 complex adds, 6 twiddle products, two DFT_8
@@ -541,7 +577,8 @@ def tools_path(caps, demod_sizes) -> dict:
     from lte_cell_scanner_tpu_torch.io.itfile import save_it
     from lte_cell_scanner_tpu_torch.tools import (bench_decode, bench_demod,
                                                   bench_scan, bench_tracker,
-                                                  bench_viterbi, mc_search,
+                                                  bench_viterbi,
+                                                  bench_wideband, mc_search,
                                                   profile_pipeline)
 
     out = {}
@@ -607,6 +644,17 @@ def tools_path(caps, demod_sizes) -> dict:
           f"{prof['carriers_with_cells']} of 64 carriers, "
           f"{prof['value']:.3f} ms per carrier")
     out["profile_pipeline"] = prof
+    # The channelizer at the tool's defaults (16 carriers) and at the full
+    # band of a 30.72 Msps recording (296 carriers).
+    for argv in ([], ["--carriers", "296"]):
+        bw = bench_wideband.main(argv)
+        check(bw["n_out"] == 153600 and bw["bank_ms"] > 0
+              and bw["map_ms"] > 0,
+              f"bench_wideband {' '.join(argv) or '(defaults)'}: "
+              f"{bw['carriers']} carriers, bank {bw['bank_ms']:.4f} ms "
+              f"({bw['value']:.5f} ms per carrier), map {bw['map_ms']:.3f} "
+              f"ms ({bw['speedup_vs_map']:.1f}x)")
+        out[f"wideband_{bw['carriers']}"] = bw
     try:
         out["demod"] = bench_demod.main([
             "--windows", ",".join(map(str, demod_sizes)), "--iters", "20"])
@@ -907,6 +955,310 @@ def sweep_path(fset, close) -> dict:
     # launch overhead behind it, which would load every later host-clock
     # timing of this process.
     out["profile"] = (whole, t_whole[0])
+    return out
+
+
+def wideband_recording() -> np.ndarray:
+    """The wideband path's recording: the plants upsampled x16, each
+    shifted to its carrier, summed, plus complex Gaussian noise (0.001 per
+    component); the first WB_N samples."""
+    from lte_cell_scanner_tpu_torch.io.simulator import synthetic_capture
+    from lte_cell_scanner_tpu_torch.utils.dsp import interpft
+
+    t = np.arange(WB_N)
+    wide = np.zeros(WB_N, complex)
+    for fc, kw, _ in WB_PLANTS:
+        cap = synthetic_capture(n_subframes=90, **kw)
+        up = interpft(cap, len(cap) * WB_DECIM)[:WB_N]
+        wide += up * np.exp(2j * np.pi * (fc - WB_CENTER) * t / WB_FS)
+    rng = np.random.default_rng(SWEEP_SEED)
+    return wide + 0.001 * (rng.standard_normal(WB_N)
+                           + 1j * rng.standard_normal(WB_N))
+
+
+def wideband_stages(wide, fcs, fset) -> dict:
+    """Host-clock seconds of each stage of one wideband sweep, each ending
+    in a device sync: channelize (upload and channelizer), scan (K1 over
+    the stack), peaks (the peak loop, the tables' copy and the host
+    planning), sync and MIB (StackDecode's programs)."""
+    import torch
+
+    from lte_cell_scanner_tpu_torch.constants import (DS_COMB_ARM,
+                                                      THRESH2_N_SIGMA)
+    from lte_cell_scanner_tpu_torch.ops.peak_torch import (
+        peak_search_device, r_th1_normalized)
+    from lte_cell_scanner_tpu_torch.ops.xcorr_torch import xcorr_core_batch
+    from lte_cell_scanner_tpu_torch.parallel import fc_sweep
+    from lte_cell_scanner_tpu_torch.search.wideband import channelize_batch
+
+    st, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st[name], t0 = t1 - t0, t1
+
+    cap = channelize_batch(wide, WB_FS, WB_CENTER, fcs)
+    lap("channelize")
+    n_cap = cap.shape[2]
+    banks, bank_idx, starts, n_comb, n_sp = fc_sweep.scan_inputs(
+        fcs, fcs, fset, 1.92e6, n_cap, cap.device)
+    packed, single = xcorr_core_batch(cap, banks, bank_idx, starts, n_comb,
+                                      n_sp, DS_COMB_ARM)
+    lap("scan")
+    r_norm = r_th1_normalized(n_comb, DS_COMB_ARM)
+    scan = fc_sweep.StackScan(
+        peak_search_device(packed, single, r_norm, DS_COMB_ARM,
+                           early_exit=False), packed, single, r_norm,
+        DS_COMB_ARM)
+    peaks = fc_sweep.tables_to_peaks(scan.host_tables(), fcs, fset)
+    lap("peaks")
+    del scan, packed, single
+    dec = fc_sweep.StackDecode(peaks, fc_sweep.flat_stack(cap), n_cap,
+                               THRESH2_N_SIGMA, "freq_time")
+    dec.dispatch_sync()
+    dec.collect_sync()
+    lap("sync")
+    dec.dispatch_mib()
+    dec.collect_mib()
+    lap("mib")
+    return st
+
+
+def wideband_path(fset, close) -> dict:
+    """The wideband path on the card, with the kernels' launch counts set
+    to 0 just before one sweep and read just after: the recording's 296
+    carriers channelized in one call (held to the float64 decimation and
+    to the per-carrier form at the first, centre, last and planted
+    carriers), swept as one stack (K1 once, K4 and K5 once per CP group):
+    every plant decoded as planted, the deduplicated cells exactly the
+    plants, no cell more than 1 MHz from a plant; at the plants and two
+    empty carriers the cells of a float64-channelized sweep and of a
+    device="cpu" run; share_banks; the CLI's --wideband on an .it file and
+    on raw rtl_sdr bytes. Times the sweep (ms per carrier and its stages),
+    the channelizer (CUDA events, against its bound) and K1 at B = 296
+    against 296 one-capture launches; returns the sweep to be profiled at
+    the end of the script."""
+    import tempfile
+
+    import torch
+
+    from lte_cell_scanner_tpu_torch import kernels
+    from lte_cell_scanner_tpu_torch.io.frontend import (decimate_capture,
+                                                        design_decimation_fir)
+    from lte_cell_scanner_tpu_torch.io.itfile import save_it
+    from lte_cell_scanner_tpu_torch.io.raw import iq_to_bytes
+    from lte_cell_scanner_tpu_torch.ops import xcorr_torch
+    from lte_cell_scanner_tpu_torch.parallel import fc_sweep
+    from lte_cell_scanner_tpu_torch.search import wideband as wb
+
+    dev = torch.device("cuda")
+    out = {}
+    t0 = time.perf_counter()
+    wide = wideband_recording()
+    fcs = wb.wideband_carriers(WB_FS, WB_CENTER, WB_CENTER - WB_FS / 2,
+                               WB_CENTER + WB_FS / 2)
+    B = len(fcs)
+    plant_idx = [fcs.index(fc) for fc, _, _ in WB_PLANTS]
+    print(f"wideband set-up: {WB_N:,} samples at {WB_FS / 1e6:.2f} Msps "
+          f"around {WB_CENTER / 1e6:.1f} MHz, {B} carriers "
+          f"{fcs[0] / 1e6:.1f}-{fcs[-1] / 1e6:.1f} MHz, plants at "
+          f"{[fc / 1e6 for fc, _, _ in WB_PLANTS]} MHz "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(B == 296, f"wideband: the 30.72 Msps recording's raster holds "
+          f"{B} carriers (want 296)")
+
+    # All carriers in one call, against the float64 decimation and the
+    # per-carrier form at the first, centre, last and planted carriers.
+    t1 = time.perf_counter()
+    ch = wb.channelize_batch(wide, WB_FS, WB_CENTER, fcs)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t1
+    sample = sorted({0, B // 2, B - 1, *plant_idx})
+    per = wb.channelize_batch_map(wide, WB_FS, WB_CENTER,
+                                  [fcs[i] for i in sample]).cpu().numpy()
+    got = ch[sample].cpu().numpy()
+    err_host, err_map = [], []
+    for k, i in enumerate(sample):
+        host = decimate_capture(wide, WB_FS, freq_shift=fcs[i] - WB_CENTER
+                                )[:ch.shape[2]]
+        scale = np.abs(host).max()
+        err_host.append(np.abs(got[k, 0] + 1j * got[k, 1] - host).max()
+                        / scale)
+        err_map.append(np.abs(got[k] - per[k]).max() / np.abs(per[k]).max())
+    check(tuple(ch.shape) == (B, 2, 153600) and ch.is_contiguous()
+          and max(err_host) < 2e-4,
+          f"channelizer, {B} carriers in one call ({t_first:.3f} s, the "
+          f"tables' build included): shape {tuple(ch.shape)}, at carriers "
+          f"{sample} within {max(err_host):.3e} x max of the float64 "
+          "decimation (want < 2e-4)")
+    check(max(err_map) < 2e-4,
+          f"channelizer: the filter bank within {max(err_map):.3e} x max of "
+          "the per-carrier form at the same carriers (want < 2e-4)")
+    out["channelizer_err"] = max(err_host)
+
+    # K1 over the 296-capture stack against its plain version and against
+    # 296 one-capture launches, CUDA events, in turns.
+    banks, bank_idx, starts, n_comb, _ = fc_sweep.scan_inputs(
+        fcs, fcs, fset, 1.92e6, ch.shape[2], dev)
+    k1 = xcorr_torch.xcorr_fold_batch(ch, banks, bank_idx, starts, n_comb)
+    want = xcorr_torch.xcorr_fold_batch_plain(ch, banks, bank_idx, starts,
+                                              n_comb)
+    torch.cuda.synchronize()
+    out["k1_err"] = close(k1, want, f"xcorr_fold batched B={B} "
+                          f"({banks.shape[0]} banks) n_f={len(fset)} "
+                          f"n_comb={n_comb}")
+    del k1, want
+    t_b, t_1 = [], []
+    for _ in range(2):
+        t_b.append(cuda_ms(lambda: xcorr_torch.xcorr_fold_batch(
+            ch, banks, bank_idx, starts, n_comb)))
+        t_1.append(cuda_ms(lambda: xcorr_torch.xcorr_fold(
+            ch[0], banks[0], starts[0], n_comb)))
+    out["k1"] = dict(ms=float(np.median(t_b)),
+                     single_ms=float(np.median(t_1)),
+                     bound_ms=B * scan_tc_flops(len(fset), n_comb)
+                     / PEAK_TF32_FLOPS * 1e3, runs=t_b, single_runs=t_1)
+    k = out["k1"]
+    print(f"K1 batched B={B}: {k['ms']:.4f} ms (runs {t_b}) against {B} x "
+          f"its one-capture {k['single_ms']:.4f} ms = "
+          f"{B * k['single_ms']:.4f} ms (runs {t_1}); bound "
+          f"{k['bound_ms']:.4f} ms ({100 * k['bound_ms'] / k['ms']:.1f}%); "
+          f"output {B * 3 * len(fset) * 9600 * 4 / 1e9:.2f} GB", flush=True)
+    del banks, bank_idx, starts
+
+    # The channelizer alone (CUDA events): the filter bank at B = 296 and
+    # the per-carrier form per carrier, against the bank's bound: its
+    # product's flops (2 B rows x n_out x 2 L taps, FMA = 2) and 12 flops
+    # per rotated sample over the f32 rate, or each input read once and
+    # each output written once.
+    bank = wb.make_channelizer(WB_FS, WB_CENTER, fcs, WB_N)
+    planes = wb.wide_planes(wide, bank.device)
+    per16 = wb.make_channelizer_map(WB_FS, WB_CENTER, fcs[:16], WB_N)
+    L, n_out = len(design_decimation_fir(WB_DECIM)), bank.n_out
+    ch_b = bound(2 * 2 * B * n_out * 2 * L + 12 * B * n_out,
+                 4 * (2 * bank.n_used + bank.kern.numel() + bank.t1.numel()
+                      + bank.t2.numel() + 2 * B * n_out))
+    out["channelizer"] = dict(bank_ms=cuda_ms(lambda: bank(planes)),
+                              map_ms_per_carrier=cuda_ms(
+                                  lambda: per16(planes)) / 16,
+                              bound_ms=ch_b[0], bound_by=ch_b[1])
+    c = out["channelizer"]
+    print(f"channelizer (CUDA events, median of {REPS}): filter bank "
+          f"{c['bank_ms']:.4f} ms for {B} carriers ({c['bank_ms'] / B:.5f} "
+          f"ms per carrier), bound {ch_b[0]:.4f} ms by {ch_b[1]} "
+          f"({100 * ch_b[0] / c['bank_ms']:.1f}%); per-carrier form "
+          f"{c['map_ms_per_carrier']:.4f} ms per carrier "
+          f"({c['map_ms_per_carrier'] * B / c['bank_ms']:.1f}x the bank "
+          f"at {B})", flush=True)
+    del ch, planes, per16
+
+    # The sweep: its launches, its peak memory, its cells.
+    def sweep(fc_list=fcs, **kw):
+        return wb.wideband_search_sweep(wide, WB_FS, WB_CENTER, fc_list,
+                                        fset, **kw)
+
+    sweep()                                     # warm: banks, tables
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    per_cap, deduped = sweep()
+    torch.cuda.synchronize()
+    out["launches"] = dict(kernels.LAUNCHES)
+    out["max_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    lc = out["launches"]
+    print(f"wideband path launches, B={B}: {json.dumps(lc)}; max memory "
+          f"allocated {out['max_mem_gb']:.3f} GB", flush=True)
+    check(lc["xcorr_fold"] == 1 and lc["fd_demod"] == 2
+          and lc["viterbi"] == 2,
+          f"wideband path: xcorr_fold launched {lc['xcorr_fold']} time(s), "
+          f"fd_demod {lc['fd_demod']}, viterbi {lc['viterbi']} (want 1, 2, "
+          "2: one scan of the stack, one MIB program per CP type)")
+    got = sweep_cells(per_cap)
+    for (fc, kw, want_cell), i in zip(WB_PLANTS, plant_idx):
+        df = [abs(c.freq_superfine - kw["freq_offset"]) for c in per_cap[i]]
+        check(got[i] == [want_cell] and df[0] < 50,
+              f"wideband {fc / 1e6:.1f} MHz: decodes {got[i]} (want "
+              f"{[want_cell]}), freq_superfine {df} Hz from the planted "
+              "offset (want < 50)")
+    plants = sorted(w[0] for _, _, w in WB_PLANTS)
+    check(sorted(c.n_id_cell() for c in deduped) == plants,
+          f"wideband: deduped {sorted(c.n_id_cell() for c in deduped)} is "
+          f"exactly the plants {plants}")
+    far = [b for b in range(B)
+           if min(abs(fcs[b] - fc) for fc, _, _ in WB_PLANTS) > 1e6]
+    false = {fcs[b] / 1e6: got[b] for b in far if got[b]}
+    check(not false, f"wideband: no cell on the {len(far)} carriers more "
+          f"than 1 MHz from a plant (found {false})")
+    print(f"wideband: cells on {sum(map(bool, got))} of {B} carriers: "
+          + ", ".join(f"{fcs[b] / 1e6:.1f} {[x[0] for x in got[b]]}"
+                      for b in range(B) if got[b]), flush=True)
+    # The plants and two empty carriers: the float64 route and the CPU.
+    sub = plant_idx + [fcs.index(fc) for fc in WB_EMPTY]
+    sub_fcs = [fcs[i] for i in sub]
+    ref = [got[i] for i in sub]
+    for what, kw in (("the float64-channelized sweep (backend='numpy')",
+                      dict(backend="numpy")),
+                     ("a device='cpu' run", dict(device="cpu"))):
+        t1 = time.perf_counter()
+        other, _ = sweep(sub_fcs, **kw)
+        df = max([abs(a.freq_superfine - b.freq_superfine) for i, o in
+                  zip(sub, other) for a, b in zip(per_cap[i], o)] or [0.0])
+        check(sweep_cells(other) == ref and df < 1.0,
+              f"wideband at the plants and {len(WB_EMPTY)} empty carriers: "
+              f"the card's cells equal {what} ({time.perf_counter() - t1:.1f}"
+              f" s; freq_superfine within {df:.4f} Hz, want < 1)")
+    shared, _ = sweep(share_banks=True)
+    check(sweep_cells(shared) == got, "wideband share_banks: the same cells")
+
+    # The CLI on the card: the recording as an .it file (its fs field the
+    # default --fs-in) and as raw rtl_sdr bytes.
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    lo, hi = min(fc for fc, _, _ in WB_PLANTS), max(fc for fc, _, _ in
+                                                    WB_PLANTS)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as tmp:
+        it_path = os.path.join(tmp, "wide.it")
+        raw_path = os.path.join(tmp, "wide.raw")
+        save_it(it_path, {"capbuf": wide, "fc": np.array([WB_CENTER]),
+                          "fs": np.array([WB_FS])})
+        iq_to_bytes(wide / (4 * np.abs(wide).std())).tofile(raw_path)
+        base = [sys.executable, "-m", "lte_cell_scanner_tpu_torch.search.cli",
+                "-s", f"{lo:.0f}", "-e", f"{hi:.0f}", "-p", "100"]
+        for name, args in (
+                ("--wideband FILE.it", ["--wideband", it_path]),
+                ("--wideband FILE.raw --wideband-rtl-sdr",
+                 ["--wideband", raw_path, "--wideband-rtl-sdr", "--fs-in",
+                  f"{WB_FS:.0f}", "--fc-center", f"{WB_CENTER:.0f}"])):
+            t1 = time.perf_counter()
+            r = subprocess.run(base + args, cwd=HERE, capture_output=True,
+                               text=True, timeout=600)
+            lines = r.stdout.splitlines()
+            head = [i for i, ln in enumerate(lines) if ln.startswith("CID ")]
+            rows = lines[head[0] + 1:] if head else []
+            ids = sorted(int(ln.split()[0]) for ln in rows if ln.strip())
+            print(f"CLI {name} ({time.perf_counter() - t1:.1f} s): rc "
+                  f"{r.returncode}, rows {rows}" + (
+                      f"\n{r.stderr[-2000:]}" if r.returncode else ""),
+                  flush=True)
+            check(r.returncode == 0 and ids == plants,
+                  f"the CLI ({name}, {lo / 1e6:.1f}-{hi / 1e6:.1f} MHz, on "
+                  f"the card) prints the plants {plants}: {ids}")
+
+    # Times: the sweep per carrier (host clock, median of SWEEP_REPS warm
+    # sweeps) and its stages.
+    t_sweep = host_ms_n(sweep, SWEEP_REPS)
+    stages = [wideband_stages(wide, fcs, fset) for _ in range(SWEEP_REPS)]
+    out["ms_per_carrier"] = t_sweep[0] / B
+    out["stages_ms_per_carrier"] = {
+        k: float(np.median([s[k] for s in stages])) * 1e3 / B
+        for k in stages[0]}
+    print(f"wideband sweep, {B} carriers: {out['ms_per_carrier']:.4f} ms per "
+          f"carrier (host clock, median of {SWEEP_REPS}: runs {t_sweep[1]} "
+          "ms); stages, ms per carrier (each ending in a sync): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in out["stages_ms_per_carrier"].items()),
+          flush=True)
+    out["profile"] = (sweep, t_sweep[0])
     return out
 
 
@@ -1306,8 +1658,14 @@ def main() -> int:
     sweep_launches = {k: sweep["launches"]["whole"][k]
                       + sweep["launches"]["pipelined"][k]
                       for k in kernels.KERNELS}
+
+    # The wideband path.
+    t0 = time.perf_counter()
+    wband = wideband_path(fset31, close)
+    print(f"wideband path: {time.perf_counter() - t0:.1f} s", flush=True)
     path_launches = {"search": launches, "tracker": trk_launches,
-                     "tools": tools_launches, "sweep": sweep_launches}
+                     "tools": tools_launches, "sweep": sweep_launches,
+                     "wideband": wband["launches"]}
 
     # ---- 4. timing.
     t_scan = cuda_ms(lambda: xcorr_torch.xcorr_fold(
@@ -1422,6 +1780,8 @@ def main() -> int:
     device_busy(cap_run.cycle, cyc_ms, warm=False)
     print(f"sweep, whole stack B={SWEEP_B}:")
     device_busy(*sweep["profile"])
+    print("wideband sweep, B=296:")
+    device_busy(*wband["profile"])
     mibs = [c.mib_decode_successes for c in cap_run.cells]
     check(min(mibs) > 0 and all(c.health == 1.0 for c in cap_run.cells),
           f"capacity run: every replica decodes its MIB (min {min(mibs)}, "
@@ -1528,7 +1888,7 @@ def main() -> int:
              plain_ms=t_vit_plain, bound_ms=vit_b[0], bound_by=vit_b[1],
              library_ms=None),
     ]
-    # Each kernel's launches over the four paths' runs, and by path.
+    # Each kernel's launches over the five paths' runs, and by path.
     for r in rows:
         by_path = {p: n[r["name"]] for p, n in path_launches.items()
                    if n[r["name"]]}
@@ -1540,6 +1900,10 @@ def main() -> int:
                    batch64_bound_ms=kb["bound_ms"],
                    batch64_library_ms=kb["conv_ms"],
                    batch64_max_abs_err=sweep["k1_batch_err"])
+    kw = wband["k1"]
+    rows[0].update(batch296_ms=kw["ms"], batch296_single_ms=kw["single_ms"],
+                   batch296_bound_ms=kw["bound_ms"],
+                   batch296_max_abs_err=wband["k1_err"])
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "

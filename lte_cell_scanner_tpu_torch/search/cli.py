@@ -9,7 +9,10 @@ CUDA card unless ``--device cpu`` asks for the plain PyTorch versions of
 the kernels. ``--batch-sweep`` captures the whole sweep first, then scans
 it in one batch and decodes every candidate in two batched programs
 (parallel/fc_sweep.py); with ``--sweep-batch N`` it runs as a pipeline
-over chunks of N captures (search/pipeline.py).
+over chunks of N captures (search/pipeline.py). ``--wideband FILE``
+searches one wideband recording instead: every raster carrier of
+[freq-start, freq-end] is channelized out of it on the device and swept
+as one batch (search/wideband.py).
 
 Usage:
     python -m lte_cell_scanner_tpu_torch.search.cli \\
@@ -19,6 +22,8 @@ Usage:
         --batch-sweep --sweep-batch 32
     python -m lte_cell_scanner_tpu_torch.search.cli \\
         --freq-start 739e6 --load --data-dir DIR
+    python -m lte_cell_scanner_tpu_torch.search.cli \\
+        --freq-start 724.3e6 --freq-end 753.8e6 --wideband FILE.it
 """
 
 from __future__ import annotations
@@ -81,7 +86,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "one batch and decode every candidate in two "
                         "batched programs (deferred output)")
     p.add_argument("--share-banks", action="store_true",
-                   help="with --batch-sweep: carriers whose integer fold "
+                   help="with --batch-sweep or --wideband: carriers "
+                        "whose integer fold "
                         "schedules match share one template bank. "
                         "Detection-equivalent (~1e-6 relative scan "
                         "perturbation, far below the noise floor; the "
@@ -94,6 +100,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "decodes of adjacent chunks overlap, and only a "
                         "few chunks are on the card at a time; 0 = one "
                         "whole-sweep batch)")
+    p.add_argument("--wideband", metavar="FILE", default=None,
+                   help="search a single wideband .it recording (fs an "
+                        "integer multiple of 1.92 Msps, fc field = band "
+                        "center): every raster carrier in "
+                        "[freq-start, freq-end] is channelized out of "
+                        "the one capture on the device and swept as one "
+                        "batch")
+    p.add_argument("--fs-in", type=float, default=None,
+                   help="wideband recording's sample rate (Hz; default: "
+                        "the .it file's fs field, if the recording "
+                        "carries one)")
+    p.add_argument("--wideband-rtl-sdr", action="store_true",
+                   help="the --wideband file is raw uint8 IQ (rtl_sdr "
+                        "format) instead of .it; requires --fc-center")
+    p.add_argument("--fc-center", type=float, default=None,
+                   help="wideband recording's center frequency (Hz; "
+                        "required for raw recordings, overrides the .it "
+                        "file's fc field otherwise)")
     return p
 
 
@@ -129,6 +153,9 @@ def main(argv=None) -> int:
     if verbosity >= 2:
         print(f"Searching {len(fc_search_set)} center frequencies x "
               f"{len(f_search_set)} offset hypotheses")
+
+    if args.wideband:
+        return _wideband_sweep(args, f_search_set, verbosity)
 
     if args.simulate:
         source = CaptureSource("simulator", data_dir=args.data_dir,
@@ -168,6 +195,64 @@ def _capture(source, fc_requested: float):
         sys.exit(f"Error: no recorded capture to load: {e.filename}")
 
 
+def _print_per_carrier(fcs, per_cap) -> None:
+    for b, fc in enumerate(fcs):
+        for c in per_cap[b]:
+            print(f"  {fc / 1e6:.4g} MHz: cell ID {c.n_id_cell()}: "
+                  f"{c.n_rb_dl} RB, {c.cp_type} CP, foff "
+                  f"{c.freq_superfine:+.1f} Hz")
+
+
+def _wideband_sweep(args, f_search_set, verbosity: int) -> int:
+    """One wideband recording -> every raster carrier in range,
+    channelized on --device in one pass and swept as one batch
+    (search/wideband.py)."""
+    from lte_cell_scanner_tpu_torch.io.itfile import load_it
+    from lte_cell_scanner_tpu_torch.io.raw import load_rtl_sdr
+    from lte_cell_scanner_tpu_torch.search.wideband import (
+        wideband_carriers, wideband_search_sweep)
+
+    if args.wideband_rtl_sdr:
+        # Raw uint8 IQ (the dongle's native file format) carries no
+        # metadata: rate and center frequency come from the command line.
+        if args.fs_in is None:
+            sys.exit("Error: --wideband-rtl-sdr requires --fs-in (the "
+                     "recording's sample rate in Hz)")
+        if args.fc_center is None:
+            sys.exit("Error: --wideband-rtl-sdr requires --fc-center")
+        wide = load_rtl_sdr(args.wideband, fs=args.fs_in)
+        fc_center = args.fc_center
+    else:
+        d = load_it(args.wideband)
+        wide = d["capbuf"]
+        if args.fs_in is None and "fs" in d:
+            args.fs_in = float(np.asarray(d["fs"]).ravel()[0])
+        if args.fs_in is None:
+            sys.exit("Error: --wideband requires --fs-in (the recording "
+                     "carries no fs field)")
+        fc_center = (args.fc_center if args.fc_center is not None
+                     else float(np.asarray(d["fc"]).ravel()[0]))
+    fcs = wideband_carriers(args.fs_in, fc_center, args.freq_start,
+                            args.freq_end)
+    if not fcs:
+        sys.exit("Error: no raster carriers of [freq-start, freq-end] "
+                 "fit the recording's usable bandwidth")
+    if verbosity >= 1:
+        print(f"Channelizing {len(fcs)} carrier(s) out of the "
+              f"{args.fs_in / 1e6:.4g} Msps recording at "
+              f"{fc_center / 1e6:.4g} MHz ...")
+    t0 = time.time()
+    per_cap, deduped = wideband_search_sweep(
+        wide, args.fs_in, fc_center, fcs, np.asarray(f_search_set),
+        device=args.device, share_banks=args.share_banks,
+        interp="hex" if args.interp == "hex" else "freq_time")
+    if verbosity >= 1:
+        _print_per_carrier(fcs, per_cap)
+        print(f"  wideband sweep: {len(fcs)} carrier(s) in "
+              f"{time.time() - t0:.2f}s")
+    return print_results(deduped, args.correction)
+
+
 def _batched_sweep(args, source, fc_search_set, f_search_set,
                    verbosity: int) -> int:
     """Whole-sweep batched path: capture everything, then one batched scan
@@ -204,11 +289,7 @@ def _batched_sweep(args, source, fc_search_set, f_search_set,
             share_banks=args.share_banks, interp=interp)
         mode = "single batch"
     if verbosity >= 1:
-        for b, fc in enumerate(fcs):
-            for c in per_cap[b]:
-                print(f"  {fc / 1e6:.4g} MHz: cell ID {c.n_id_cell()}: "
-                      f"{c.n_rb_dl} RB, {c.cp_type} CP, foff "
-                      f"{c.freq_superfine:+.1f} Hz")
+        _print_per_carrier(fcs, per_cap)
         print(f"  sweep: {B} fc in {time.time() - t0:.2f}s ({mode})")
     return print_results(deduped, args.correction)
 

@@ -3,6 +3,8 @@
 Conventions follow the reference (include/dsp.h): ``idft`` is unitary
 scaled, ``fshift`` multiplies by exp(+j*2*pi*f*t/fs), ``interp1`` extrapolates linearly like MATLAB, ``wrap`` folds into
 a half-open interval like the WRAP macro of include/macros.h.
+``interpft`` resamples like MATLAB's; the wideband recordings of the
+tests and of chip_smoke.py are narrowband captures upsampled with it.
 """
 
 from __future__ import annotations
@@ -57,6 +59,32 @@ def interp1(X: np.ndarray, Y: np.ndarray, x: np.ndarray) -> np.ndarray:
 def chi2cdf_inv(p: float, k: float) -> float:
     """Inverse chi-squared CDF (reference: include/dsp.h:188-193)."""
     return 2.0 * _special.gammaincinv(k / 2.0, p)
+
+
+def interpft(x: np.ndarray, n_y: int) -> np.ndarray:
+    """FFT-based resampling of ``x`` to ``n_y`` points (MATLAB interpft).
+
+    reference: src/dsp.cpp:52-91 — zero-pad in the frequency domain to an
+    integer multiple of len(x) at least n_y long, inverse transform, then
+    decimate.
+    """
+    x = np.asarray(x)
+    m = len(x)
+    if n_y <= 0:
+        raise ValueError("n_y must be positive")
+    # Upsample to n_y*incr points (incr chosen so that is >= m), then
+    # decimate by incr — MATLAB's incr = floor(m/n_y) + 1.
+    incr = m // n_y + 1
+    n_up = n_y * incr
+    X = np.fft.fft(x)
+    nyqst = int(np.ceil((m + 1) / 2))
+    Xp = np.concatenate([X[:nyqst], np.zeros(n_up - m, dtype=X.dtype),
+                         X[nyqst:]])
+    if m % 2 == 0:
+        Xp[nyqst - 1] = Xp[nyqst - 1] / 2
+        Xp[nyqst - 1 + n_up - m] = Xp[nyqst - 1]
+    y = np.fft.ifft(Xp) * (n_up / m)
+    return y[::incr][:n_y]
 
 
 def wrap(x, lower, upper):

@@ -116,9 +116,11 @@ def test_port_imports_no_jax():
         p.name for p in files if p.parent.name == "tracker"}
     assert {"bench_scan.py", "bench_decode.py", "bench_viterbi.py",
             "bench_tracker.py", "mc_search.py", "rtl_sdr_check.py",
-            "noise_bias.py", "pss_ambiguity.py", "profile_pipeline.py"} <= {
+            "noise_bias.py", "pss_ambiguity.py", "profile_pipeline.py",
+            "bench_wideband.py"} <= {
         p.name for p in files if p.parent.name == "tools"}
-    assert {"io/capture.py", "parallel/fc_sweep.py", "search/pipeline.py"} <= {
+    assert {"io/capture.py", "parallel/fc_sweep.py", "search/pipeline.py",
+            "io/frontend.py", "search/wideband.py"} <= {
         f"{p.parent.name}/{p.name}" for p in files}
     for path in files:
         for name in _imports(path):

@@ -18,8 +18,8 @@ from lte_cell_scanner_tpu.tools.rtl_sdr_check import \
     check_capture as jax_check_capture
 from lte_cell_scanner_tpu_torch.tools import (bench_decode, bench_demod,
                                               bench_scan, bench_viterbi,
-                                              mc_search, noise_bias,
-                                              pss_ambiguity)
+                                              bench_wideband, mc_search,
+                                              noise_bias, pss_ambiguity)
 from lte_cell_scanner_tpu_torch.tools.rtl_sdr_check import check_capture
 from torch_one_thread import _one_torch_thread  # noqa: F401
 
@@ -211,3 +211,17 @@ def test_bench_demod_sizes():
         # On the CPU both variants run the plain version.
         assert r["max_abs_err"] == 0.0
         assert r["plain_ms"] > 0 and r["cuda_ms"] > 0
+
+
+def test_bench_wideband_keys():
+    """The JAX tool's JSON keys, both forms timed (the host clock on the
+    CPU) at 4 carriers."""
+    out = bench_wideband.main(["--device", "cpu", "--carriers", "4",
+                               "--decim", "4", "--iters", "1"])
+    assert out["metric"] == "wideband_channelize_ms_per_carrier"
+    assert out["carriers"] == 4 and out["decim"] == 4
+    assert out["n_out"] == 153600 and out["device"] == "cpu"
+    assert out["value"] == pytest.approx(out["bank_ms"] / 4)
+    assert out["carriers_per_sec"] == pytest.approx(4e3 / out["bank_ms"])
+    assert out["map_ms"] > 0 and out["speedup_vs_map"] == pytest.approx(
+        out["map_ms"] / out["bank_ms"])
