@@ -4,13 +4,15 @@ NVIDIA card.
 
     python3 chip_smoke.py
 
-Five paths of the port run on the card: the cell search on one capture
+Six paths of the port run on the card: the cell search on one capture
 (search/cell_search.py), the batched tracker engine (tracker/,
 LTETracker), the tools (tools/: bench_scan, bench_viterbi, bench_decode,
 bench_demod, bench_tracker, mc_search, bench_wideband), the batched fc
 sweep (parallel/fc_sweep.py, search/pipeline.py, the CLI's
---batch-sweep) and the wideband front end (io/frontend.py,
-search/wideband.py, the CLI's --wideband).
+--batch-sweep), the wideband front end (io/frontend.py,
+search/wideband.py, the CLI's --wideband) and the multi-device paths
+(parallel/: the sweeps' cap axis, the (seq, hyp)-sharded scan, the
+torch.distributed collective path).
 Phases; the script exits non-zero if any fails:
 
 1. Print the card (nvidia-smi name and power limit) and build the CUDA
@@ -74,7 +76,17 @@ Phases; the script exits non-zero if any fails:
    CLI's --wideband on an .it file and on raw bytes; the wideband sweep's
    ms per carrier and its stages (host clock, median of 5), the
    channelizer and K1 at B = 296 against their bounds (CUDA events), peak
-   device memory and the device-busy share.
+   device memory and the device-busy share; the multi path (the device
+   count printed): the 64-carrier whole stack over every visible card and
+   over two shards on cuda:0, the 128 x 32 pipeline and the 296-carrier
+   wideband sweep over two shards on cuda:0 (K1 once per shard, once per
+   shard per chunk; every decoded cell equal to the one-shard run's),
+   dryrun_multichip on ("cuda:0",) x 4 at (seq 2, hyp 2) (float32 tables
+   within 1e-5 x max of the unsharded K1 scan), and a world-size-1 NCCL
+   process group running the (seq 2, hyp 2) scan through all_reduce and
+   all_gather; the whole stack's ms per carrier at 1 and 2 shards, K1 at
+   B = 32 against B = 64 and the (seq, hyp) scan at (1,1), (2,1), (1,2)
+   and (2,2) shards against the unsharded scan.
 4. Time each kernel, its plain version and its library yardstick (K1:
    F.conv1d of the 2x2 blocks; K3: the grouped F.conv1d of its three real
    correlations; K4: torch.fft.fft and a dense f32 matmul, both partial;
@@ -87,7 +99,7 @@ Phases; the script exits non-zero if any fails:
    median cycle), its stage split and its device-busy share; and the
    host cost of a launch's device guard.
 
-Each kernel's ``launches`` in the kernels line is the sum over the five
+Each kernel's ``launches`` in the kernels line is the sum over the six
 paths' runs, ``launches_by_path`` the split. The line before the last is
 {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
@@ -848,7 +860,7 @@ def sweep_path(fset, close) -> dict:
     shared, _ = fc_sweep.sharded_search_sweep(planes, fcs, fset,
                                               fc_prog_list=fcp,
                                               share_banks=True)
-    n_banks = {k[-1]: v[0].shape[0] for k, v in
+    n_banks = {k[-1]: v[0][0].shape[0] for k, v in
                fc_sweep._DEV_BANK_CACHE.items() if k[0] == tuple(fcs)}
     check(sweep_cells(shared) == got,
           f"share_banks: the same cells ({n_banks.get(True)} banks shared "
@@ -955,6 +967,9 @@ def sweep_path(fset, close) -> dict:
     # launch overhead behind it, which would load every later host-clock
     # timing of this process.
     out["profile"] = (whole, t_whole[0])
+    # What the multi phase holds its shards to: the one-card runs.
+    out["stack"] = (planes128, fcs128, fcp128)
+    out["whole_cells"], out["pipe_cells"] = per_cap, p_cap
     return out
 
 
@@ -1259,6 +1274,238 @@ def wideband_path(fset, close) -> dict:
               f"{k} {v:.4f}" for k, v in out["stages_ms_per_carrier"].items()),
           flush=True)
     out["profile"] = (sweep, t_sweep[0])
+    out["wide"], out["fcs"], out["cells"] = wide, fcs, per_cap
+    return out
+
+
+def turns(fns: dict, n: int) -> dict:
+    """(median, runs) of host wall milliseconds (each run ending in a
+    device sync) of each of ``fns``, one warm-up each, then ``n`` rounds
+    taking them in turns."""
+    import torch
+
+    for fn in fns.values():
+        fn()
+    runs = {k: [] for k in fns}
+    for _ in range(n):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs[k].append(round((time.perf_counter() - t0) * 1e3, 3))
+    return {k: (float(np.median(v)), v) for k, v in runs.items()}
+
+
+def multi_path(sweep: dict, wband: dict, fset) -> dict:
+    """The multi-device paths on the card, with the kernels' launch counts
+    set to 0 just before each drive and read just after (summed into the
+    phase's launches): the 64-carrier whole stack over every visible card
+    (:func:`all_cards_mesh`) and over two shards on cuda:0, the 128 x 32
+    pipeline and the 296-carrier wideband sweep over two shards on
+    cuda:0, each shard launching K1 once (once per chunk in the
+    pipeline) and every decoded cell equal to the one-shard run's (the
+    sweep and wideband phases); dryrun_multichip on ("cuda:0",) x 4 at
+    (seq 2, hyp 2), its float32 tables within SCAN_RTOL x max of the
+    unsharded K1 scan; a world-size-1 NCCL process group and one
+    sharded_xcorr_pss through the collective path, against the same
+    mesh in one process. Times the whole stack at 1 and 2 shards (ms per
+    carrier), K1 at B = 32 against B = 64 in one launch, and the (seq,
+    hyp) scan at (1,1), (2,1), (1,2), (2,2) shards against the unsharded
+    scan (host clock, in turns)."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from lte_cell_scanner_tpu_torch import kernels
+    from lte_cell_scanner_tpu_torch.ops import xcorr_torch
+    from lte_cell_scanner_tpu_torch.parallel import fc_sweep
+    from lte_cell_scanner_tpu_torch.parallel.multichip_checks import (
+        SCAN_RTOL, dryrun_multichip, k1_scan, planted_capture, same_cells,
+        scan_close)
+    from lte_cell_scanner_tpu_torch.parallel.multihost import init_multihost
+    from lte_cell_scanner_tpu_torch.parallel.sharded_search import (
+        make_search_mesh, sharded_xcorr_pss)
+    from lte_cell_scanner_tpu_torch.search import wideband as wb
+    from lte_cell_scanner_tpu_torch.search.pipeline import \
+        pipelined_search_sweep
+
+    n_cards = torch.cuda.device_count()
+    print(f"multi: torch.cuda.device_count() = {n_cards} "
+          f"({card_line()})", flush=True)
+    out = {"launches": dict.fromkeys(kernels.KERNELS, 0)}
+
+    def drive(what, fn):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        r = fn()
+        torch.cuda.synchronize()
+        lc = dict(kernels.LAUNCHES)
+        for k in lc:
+            out["launches"][k] += lc[k]
+        print(f"multi path launches, {what}: {json.dumps(lc)}", flush=True)
+        return r, lc
+
+    def cells_equal(got, want, what):
+        try:
+            bit = same_cells(got, want)
+        except AssertionError as e:
+            check(False, f"{what}: cells differ from one shard's ({e})")
+            return
+        check(True, f"{what}: every decoded cell equals the one-shard "
+              f"run's (IDs, CP, nRB, ports, SFN, PHICH exact, "
+              f"freq_superfine within 0.5 Hz; every field bit-equal: {bit})")
+
+    planes128, fcs128, fcp128 = sweep["stack"]
+    B = SWEEP_B
+    planes, fcs, fcp = planes128[:B], fcs128[:B], fcp128[:B]
+    every = fc_sweep.all_cards_mesh(B)
+    two = fc_sweep.CapMesh(["cuda:0", "cuda:0"])
+
+    def whole(mesh):
+        return lambda: fc_sweep.sharded_search_sweep(planes, fcs, fset, mesh,
+                                                     fc_prog_list=fcp)[0]
+
+    for what, mesh in ((f"whole stack B={B} over every card", every),
+                       (f"whole stack B={B}, 2 shards on cuda:0", two)):
+        whole(mesh)()                       # warm: the mesh's banks
+        got, lc = drive(what, whole(mesh))
+        n_sh = len(mesh.devices)
+        cells_equal(got, sweep["whole_cells"], what)
+        check(lc["xcorr_fold"] == n_sh and lc["fd_demod"] == 2 * n_sh
+              and lc["viterbi"] == 2 * n_sh,
+              f"{what}: xcorr_fold launched {lc['xcorr_fold']} time(s), "
+              f"fd_demod {lc['fd_demod']}, viterbi {lc['viterbi']} (want "
+              f"{n_sh}, {2 * n_sh}, {2 * n_sh}: once per shard, one MIB "
+              "program per CP type per shard)")
+    t = turns({"1 shard": whole(fc_sweep.CapMesh(["cuda:0"])),
+               "2 shards": whole(two)}, SWEEP_REPS)
+    out["whole_ms_per_carrier"] = {k: v[0] / B for k, v in t.items()}
+    out["profile"] = (whole(two), t["2 shards"][0])
+    print(f"multi: whole stack B={B} on cuda:0, ms per carrier (host "
+          f"clock, median of {SWEEP_REPS} in turns): " + ", ".join(
+              f"{k} {v[0] / B:.4f} (runs {v[1]} ms)" for k, v in t.items())
+          + f"; {card_line()}", flush=True)
+
+    # K1 at B = 32 (one shard's launch) against B = 64 in one launch.
+    dev = torch.device("cuda:0")
+    cap = fc_sweep.device_planes(planes, dev)
+    banks, bank_idx, starts, n_comb, _ = fc_sweep.scan_inputs(
+        fcs, fcp, fset, 1.92e6, cap.shape[2], dev)
+    half = B // 2
+    k1 = {}
+    for _ in range(2):
+        for n in (B, half):
+            k1.setdefault(n, []).append(cuda_ms(
+                lambda: xcorr_torch.xcorr_fold_batch(
+                    cap[:n], banks, bank_idx[:n], starts[:n], n_comb)))
+    out["k1_shard"] = {n: float(np.median(v)) for n, v in k1.items()}
+    print(f"multi: K1 (CUDA events, median of {REPS}, twice in turns): "
+          f"B={half} (one of two shards) {k1[half]} ms, B={B} in one launch "
+          f"{k1[B]} ms; two shards on one card {2 * out['k1_shard'][half]:.4f}"
+          f" ms against {out['k1_shard'][B]:.4f}; {card_line()}", flush=True)
+    del cap, banks, bank_idx, starts
+
+    # The pipeline at 128 x 32 over two shards on cuda:0.
+    n_chunks = -(-SWEEP_PIPE[0] // SWEEP_PIPE[1])
+
+    def pipe():
+        return pipelined_search_sweep(planes128, fcs128, fset, two,
+                                      batch=SWEEP_PIPE[1],
+                                      fc_prog_list=fcp128)[0]
+
+    pipe()
+    what = f"pipelined {SWEEP_PIPE[0]} x {SWEEP_PIPE[1]}, 2 shards on cuda:0"
+    got, lc = drive(what, pipe)
+    cells_equal(got, sweep["pipe_cells"], what)
+    check(lc["xcorr_fold"] == 2 * n_chunks,
+          f"{what}: xcorr_fold launched {lc['xcorr_fold']} time(s) (want "
+          f"{2 * n_chunks}: once per shard per chunk)")
+
+    # The wideband sweep of 296 carriers over two shards on cuda:0, each
+    # channelizing its own 148 carriers.
+    def wide2():
+        return wb.wideband_search_sweep(wband["wide"], WB_FS, WB_CENTER,
+                                        wband["fcs"], fset, two)[0]
+
+    wide2()
+    what = f"wideband B={len(wband['fcs'])}, 2 shards on cuda:0"
+    t1 = time.perf_counter()
+    got, lc = drive(what, wide2)
+    cells_equal(got, wband["cells"], what)
+    check(lc["xcorr_fold"] == 2,
+          f"{what} ({time.perf_counter() - t1:.3f} s): xcorr_fold launched "
+          f"{lc['xcorr_fold']} time(s) (want 2: once per shard)")
+
+    # The sharded scan's checks at production shape on one card (counts
+    # not taken: a check against the unsharded scan).
+    t1 = time.perf_counter()
+    try:
+        dry = dryrun_multichip(4, devices=["cuda:0"] * 4)
+        check(True, f"dryrun_multichip on cuda:0 x 4 (seq 2 x hyp 2, "
+              f"153600 x {dry['n_f']}; {time.perf_counter() - t1:.1f} s): "
+              f"float32 tables within {dry['scan_err']:.3e} x max of the "
+              f"unsharded K1 scan (want <= {SCAN_RTOL:g}), frq equal but at "
+              "near ties; the cap-axis sweep and the pipelined check "
+              f"({dry['pipelined']['cells']} cells, bit-equal "
+              f"{dry['pipelined']['bit_equal']}) equal one shard's")
+    except AssertionError as e:
+        check(False, f"dryrun_multichip on cuda:0 x 4: {e}")
+
+    # The (seq, hyp) scan: each layout on cuda:0 against the unsharded
+    # K1 scan, in turns (host clock: planning, uploads, the scan and the
+    # tables' copy to the host).
+    cap_p, fset_p, fc_p = planted_capture(153600, len(fset) + 1)
+    layouts = ((1, 1), (2, 1), (1, 2), (2, 2))
+    meshes = {f"{a},{b}": make_search_mesh(a, b, devices=["cuda:0"] * (a * b))
+              for a, b in layouts}
+
+    def scan(m):
+        return lambda: sharded_xcorr_pss(cap_p, fset_p, 2, fc_p, fc_p,
+                                         1.92e6, m)
+
+    fns = {"unsharded": lambda: k1_scan(cap_p, fset_p, 2, fc_p, fc_p,
+                                        1.92e6, dev)}
+    fns.update({k: scan(m) for k, m in meshes.items()})
+    t = turns(fns, SWEEP_REPS)
+    out["scan_ms"] = {k: v[0] for k, v in t.items()}
+    print(f"multi: (seq, hyp) scan of 153600 x {len(fset_p)} on cuda:0, ms "
+          f"(host clock, median of {SWEEP_REPS} in turns): " + ", ".join(
+              f"{k} {v[0]:.3f} (runs {v[1]})" for k, v in t.items())
+          + f"; {card_line()}", flush=True)
+    ref = k1_scan(cap_p, fset_p, 2, fc_p, fc_p, 1.92e6, dev)
+    local, lc = drive("(seq 2, hyp 2) scan, one process",
+                      scan(meshes["2,2"]))
+    check(lc["xcorr_fold"] == 4, f"(seq 2, hyp 2) scan: xcorr_fold "
+          f"launched {lc['xcorr_fold']} time(s) (want 4: once per shard)")
+
+    # A world-size-1 NCCL process group: the collective path.
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    try:
+        init_multihost(f"127.0.0.1:{port}", 1, 0)
+        try:
+            mesh = make_search_mesh(2, 2, devices=["cuda:0"] * 4)
+            got, lc = drive(f"(seq 2, hyp 2) scan, {dist.get_backend()} "
+                            "world size 1", scan(mesh))
+        finally:
+            dist.destroy_process_group()
+        err = scan_close(got, ref)
+    except (RuntimeError, AssertionError) as e:
+        check(False, f"NCCL world size 1, (seq 2, hyp 2) scan: {e}")
+        return out
+    bit = all(np.array_equal(getattr(got, f), getattr(local, f)) for f in (
+        "xc_incoherent_single", "xc_incoherent_collapsed_frq",
+        "sp_incoherent"))
+    check(lc["xcorr_fold"] == 4 and err <= SCAN_RTOL,
+          f"NCCL world size 1, (seq 2, hyp 2) scan through all_reduce and "
+          f"all_gather: xcorr_fold launched {lc['xcorr_fold']} time(s) "
+          f"(want 4), tables within {err:.3e} x max of the unsharded K1 "
+          f"scan (want <= {SCAN_RTOL:g}); bit-equal to the one-process "
+          f"combine: {bit}")
     return out
 
 
@@ -1663,9 +1910,14 @@ def main() -> int:
     t0 = time.perf_counter()
     wband = wideband_path(fset31, close)
     print(f"wideband path: {time.perf_counter() - t0:.1f} s", flush=True)
+    # The multi-device paths.
+    t0 = time.perf_counter()
+    multi = multi_path(sweep, wband, fset31)
+    print(f"multi path: {time.perf_counter() - t0:.1f} s", flush=True)
     path_launches = {"search": launches, "tracker": trk_launches,
                      "tools": tools_launches, "sweep": sweep_launches,
-                     "wideband": wband["launches"]}
+                     "wideband": wband["launches"],
+                     "multi": multi["launches"]}
 
     # ---- 4. timing.
     t_scan = cuda_ms(lambda: xcorr_torch.xcorr_fold(
@@ -1782,6 +2034,8 @@ def main() -> int:
     device_busy(*sweep["profile"])
     print("wideband sweep, B=296:")
     device_busy(*wband["profile"])
+    print(f"whole stack B={SWEEP_B}, 2 shards on cuda:0:")
+    device_busy(*multi["profile"])
     mibs = [c.mib_decode_successes for c in cap_run.cells]
     check(min(mibs) > 0 and all(c.health == 1.0 for c in cap_run.cells),
           f"capacity run: every replica decodes its MIB (min {min(mibs)}, "
@@ -1904,6 +2158,8 @@ def main() -> int:
     rows[0].update(batch296_ms=kw["ms"], batch296_single_ms=kw["single_ms"],
                    batch296_bound_ms=kw["bound_ms"],
                    batch296_max_abs_err=wband["k1_err"])
+    rows[0].update(batch32_ms=multi["k1_shard"][SWEEP_B // 2],
+                   batch32_bound_ms=kb["bound_ms"] / 2)
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "

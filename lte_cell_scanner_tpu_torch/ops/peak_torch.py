@@ -108,6 +108,27 @@ def peak_search_device(packed: torch.Tensor, single: torch.Tensor,
     return out
 
 
+def redo_full_tables(tables: np.ndarray, packed: torch.Tensor,
+                     single: torch.Tensor, r_norm: float,
+                     ds_comb_arm: int) -> List[np.ndarray]:
+    """Each capture's peak table of a first pass: ``tables`` (B,
+    max_peaks, 4), already on the host, over the (B, 7, 9600) and (B, 3,
+    9600, n_f) scan tables ``packed`` and ``single`` on their device. A
+    first pass may cut a dense capture short: a full table is redone on
+    that device by the greedy loop at PEAK_BOUND trips, the unbounded
+    search (reference peak loop src/CellSearch.cpp:471-569)."""
+    out = list(tables)
+    full = np.flatnonzero(tables[:, -1, 0] > 0.0)
+    if len(full) and tables.shape[1] < PEAK_BOUND:
+        idx = torch.from_numpy(full).to(packed.device)
+        redo = peak_search_device(packed[idx], single[idx], r_norm,
+                                  ds_comb_arm,
+                                  max_peaks=PEAK_BOUND).cpu().numpy()
+        for k, b in enumerate(full):
+            out[b] = redo[k]
+    return out
+
+
 def peaks_to_cells(peaks: np.ndarray, f_search_set: np.ndarray,
                    fc_requested: float, fc_programmed: float,
                    fs_programmed: float = 1.92e6) -> List[Cell]:

@@ -8,10 +8,31 @@ in float64 and handed to it as small arrays.
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
 import numpy as np
 
 from lte_cell_scanner_tpu_torch.constants import HALF_FRAME, PSS_TD_LEN
 from lte_cell_scanner_tpu_torch.models.pss import pss_td_all
+
+
+@dataclasses.dataclass
+class XcorrResult:
+    """Outputs of the PSS scan on the host (naming follows the reference;
+    the JAX package's ops/xcorr.py::XcorrResult, without its host-only
+    fields)."""
+
+    # (3, 9600) peak power / best frequency-hypothesis index per lag
+    xc_incoherent_collapsed_pow: np.ndarray
+    xc_incoherent_collapsed_frq: np.ndarray
+    # (3, 9600, n_f) per-hypothesis incoherent sums and their delay spread
+    xc_incoherent_single: np.ndarray
+    xc_incoherent: Optional[np.ndarray]
+    # (9600,) folded mean received power, aligned to correlation peaks
+    sp_incoherent: np.ndarray
+    n_comb_xc: int
+    n_comb_sp: int
 
 
 def shifted_templates(f_search_set: np.ndarray, fc_requested: float,

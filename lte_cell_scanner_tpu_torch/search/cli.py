@@ -12,7 +12,12 @@ it in one batch and decodes every candidate in two batched programs
 over chunks of N captures (search/pipeline.py). ``--wideband FILE``
 searches one wideband recording instead: every raster carrier of
 [freq-start, freq-end] is channelized out of it on the device and swept
-as one batch (search/wideband.py).
+as one batch (search/wideband.py). With ``--device cuda`` (the default)
+both batched sweeps spread over every visible card that the batch
+divides over, as the JAX CLI does. One host thread dispatches every
+shard and each shard pays the sweep's launches again, so on several
+cards this is expected to be slower than ``--device cuda:0`` (one card)
+until scaling across cards is measured (PERF.md).
 
 Usage:
     python -m lte_cell_scanner_tpu_torch.search.cli \\
@@ -33,8 +38,10 @@ import sys
 import time
 
 import numpy as np
+import torch
 
 from lte_cell_scanner_tpu_torch.io.capture import CaptureSource
+from lte_cell_scanner_tpu_torch.parallel.fc_sweep import all_cards_mesh
 from lte_cell_scanner_tpu_torch.search.cell_search import (
     cell_search, dedup, generate_search_sets)
 from lte_cell_scanner_tpu_torch.utils.device import resolve_device
@@ -74,7 +81,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-i", "--device-index", type=int, default=0,
                    help="SDR device index (live capture only)")
     p.add_argument("--device", default="cuda",
-                   help="torch device of the search: cuda (default) or cpu")
+                   help="torch device of the search: cuda (default; the "
+                   "batched sweeps span every visible card), cuda:N (one "
+                   "card) or cpu")
     p.add_argument("-v", "--verbose", action="count", default=1)
     p.add_argument("-b", "--brief", action="store_true",
                    help="only print the final result table")
@@ -203,6 +212,17 @@ def _print_per_carrier(fcs, per_cap) -> None:
                   f"{c.freq_superfine:+.1f} Hz")
 
 
+def _sweep_device(device: str, n_captures: int):
+    """(device, shard count) of a batched sweep: ``--device cuda`` (no
+    index) spans every visible card that ``n_captures`` divides over, as
+    the JAX CLI spreads a sweep over every device; any other device runs
+    one shard."""
+    if torch.device(device) == torch.device("cuda"):
+        mesh = all_cards_mesh(n_captures)
+        return mesh, len(mesh.devices)
+    return device, 1
+
+
 def _wideband_sweep(args, f_search_set, verbosity: int) -> int:
     """One wideband recording -> every raster carrier in range,
     channelized on --device in one pass and swept as one batch
@@ -242,14 +262,15 @@ def _wideband_sweep(args, f_search_set, verbosity: int) -> int:
               f"{args.fs_in / 1e6:.4g} Msps recording at "
               f"{fc_center / 1e6:.4g} MHz ...")
     t0 = time.time()
+    device, n_shards = _sweep_device(args.device, len(fcs))
     per_cap, deduped = wideband_search_sweep(
         wide, args.fs_in, fc_center, fcs, np.asarray(f_search_set),
-        device=args.device, share_banks=args.share_banks,
+        device=device, share_banks=args.share_banks,
         interp="hex" if args.interp == "hex" else "freq_time")
     if verbosity >= 1:
         _print_per_carrier(fcs, per_cap)
         print(f"  wideband sweep: {len(fcs)} carrier(s) in "
-              f"{time.time() - t0:.2f}s")
+              f"{time.time() - t0:.2f}s ({n_shards} device shard(s))")
     return print_results(deduped, args.correction)
 
 
@@ -276,21 +297,24 @@ def _batched_sweep(args, source, fc_search_set, f_search_set,
     B = len(caps)
     t0 = time.time()
     if args.sweep_batch and B > args.sweep_batch:
+        device, n_shards = _sweep_device(args.device, args.sweep_batch)
         per_cap, deduped = pipelined_search_sweep(
             np.stack(caps), fcs, np.asarray(f_search_set),
-            device=args.device, batch=args.sweep_batch,
+            device=device, batch=args.sweep_batch,
             fc_prog_list=fc_progs, share_banks=args.share_banks,
             interp=interp)
         mode = f"pipelined x{args.sweep_batch}"
     else:
+        device, n_shards = _sweep_device(args.device, B)
         per_cap, deduped = sharded_search_sweep(
             np.stack(caps), fcs, np.asarray(f_search_set),
-            device=args.device, fc_prog_list=fc_progs,
+            device=device, fc_prog_list=fc_progs,
             share_banks=args.share_banks, interp=interp)
         mode = "single batch"
     if verbosity >= 1:
         _print_per_carrier(fcs, per_cap)
-        print(f"  sweep: {B} fc in {time.time() - t0:.2f}s ({mode})")
+        print(f"  sweep: {B} fc in {time.time() - t0:.2f}s ({mode}, "
+              f"{n_shards} device shard(s))")
     return print_results(deduped, args.correction)
 
 

@@ -16,7 +16,12 @@ float64 while the card runs the next chunk's work:
   (:class:`~lte_cell_scanner_tpu_torch.utils.device.HostFetch`), and are
   collected one chunk later; the decode plans go up without blocking
   (:class:`~lte_cell_scanner_tpu_torch.parallel.fc_sweep.StackDecode`);
-- a short last chunk runs as it is.
+- a short last chunk runs as it is;
+- over a :class:`~lte_cell_scanner_tpu_torch.parallel.fc_sweep.CapMesh`,
+  each chunk splits into runs of batch / n consecutive captures, one per
+  shard, each with its own upload stream, scan launch, fetches and
+  decode; every stage is dispatched on every shard before any shard's
+  result is read.
 
 The kernels and plans are those of
 parallel/fc_sweep.py::sharded_search_sweep, so the results are equal cell
@@ -39,12 +44,27 @@ from lte_cell_scanner_tpu_torch.models.cell import Cell
 from lte_cell_scanner_tpu_torch.parallel.fc_sweep import (StackDecode,
                                                           device_planes,
                                                           flat_stack,
-                                                          scan_stack,
+                                                          scan_shards,
+                                                          sweep_devices,
                                                           tables_to_peaks)
 from lte_cell_scanner_tpu_torch.search.cell_search import dedup
 from lte_cell_scanner_tpu_torch.utils.device import (HostFetch,
-                                                     full_f32_matmuls,
-                                                     resolve_device)
+                                                     full_f32_matmuls)
+
+
+@dataclasses.dataclass
+class _Part:
+    """One shard's run of a chunk's captures on its way through the
+    stages."""
+
+    shard: int
+    lo: int                 # the part's captures in the chunk
+    hi: int
+    upload: object = None   # (raw device tensor, event) of the upload
+    scan: object = None     # StackScan, until its tables are read
+    tables: object = None   # HostFetch of the first pass's peak tables
+    flat: object = None     # (n n_cap, 2) f32 capture stack on its device
+    decode: object = None   # StackDecode
 
 
 @dataclasses.dataclass
@@ -52,14 +72,9 @@ class _Chunk:
     """One chunk of captures on its way through the stages."""
 
     lo: int                 # index of the chunk's first capture
-    hi: int
     fcs: List[float]
     fcp: List[float]
-    upload: object = None   # (raw device tensor, event) of the upload
-    scan: object = None     # StackScan, until its tables are read
-    tables: object = None   # HostFetch of the first pass's peak tables
-    flat: object = None     # (n n_cap, 2) f32 capture stack on the card
-    decode: object = None   # StackDecode
+    parts: List[_Part]
 
 
 def pipelined_search_sweep(capbufs, fc_list: Sequence[float],
@@ -80,11 +95,18 @@ def pipelined_search_sweep(capbufs, fc_list: Sequence[float],
     ``capbufs``: uint8 radio planes (B, 2, n_cap), float planes, or
     complex (B, n_cap). ``stage_s``, a dict, receives the host seconds
     spent in each stage (tools/profile_pipeline.py). ``device`` as in
-    sharded_fc_sweep: the CUDA card by default.
+    sharded_fc_sweep: the CUDA card by default, or a CapMesh, whose shard
+    count must divide ``batch``; a sweep shorter than ``batch`` runs as
+    one chunk of its length rounded up to a multiple of the shard count
+    (the JAX pipeline's rule), its last shards short or empty.
     """
     if thresh2_n_sigma is None:
         thresh2_n_sigma = THRESH2_N_SIGMA
-    dev = resolve_device(device)
+    devs = sweep_devices(None, device)
+    n_shards = len(devs)
+    if batch % n_shards:
+        raise ValueError(f"batch={batch} not divisible by cap shards "
+                         f"{n_shards}")
     full_f32_matmuls()
     capbufs = np.asarray(capbufs)
     if capbufs.ndim == 2:
@@ -93,20 +115,27 @@ def pipelined_search_sweep(capbufs, fc_list: Sequence[float],
     B_tot, _, n_cap = capbufs.shape
     if B_tot == 0:
         return [], []
+    if B_tot < batch:
+        batch = -(-B_tot // n_shards) * n_shards
+    per = batch // n_shards
     f_search_set = np.asarray(f_search_set, dtype=np.float64)
     fcp_all = (list(fc_list) if fc_prog_list is None
                else list(fc_prog_list))
-    cuda = dev.type == "cuda"
     host = torch.from_numpy(np.ascontiguousarray(capbufs))
-    if cuda:
+    if any(d.type == "cuda" for d in devs):
         host = host.pin_memory()
-        up_stream = torch.cuda.Stream(dev)
-    chunks = [_Chunk(lo, min(lo + batch, B_tot),
-                     list(fc_list[lo:lo + batch]), fcp_all[lo:lo + batch])
-              for lo in range(0, B_tot, batch)]
+    # One upload stream per shard (shards may share a device).
+    streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+               for d in devs]
+    chunks = []
+    for lo in range(0, B_tot, batch):
+        n = min(batch, B_tot - lo)
+        parts = [_Part(k, k * per, min((k + 1) * per, n))
+                 for k in range(n_shards) if k * per < n]
+        chunks.append(_Chunk(lo, list(fc_list[lo:lo + n]),
+                             fcp_all[lo:lo + n], parts))
     n_chunks = len(chunks)
     per_cap: List[List[Cell]] = [[] for _ in range(B_tot)]
-    all_good: List[Cell] = []
     clock = {} if stage_s is None else stage_s
 
     def timed(name):
@@ -123,58 +152,68 @@ def pipelined_search_sweep(capbufs, fc_list: Sequence[float],
 
     @timed("upload")
     def stage_upload(c: _Chunk):
-        """Start the chunk's copy to the card on the side stream."""
-        if not cuda:
-            c.upload = (host[c.lo:c.hi], None)
-            return
-        with torch.cuda.stream(up_stream):
-            raw = host[c.lo:c.hi].to(dev, non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record(up_stream)
-        c.upload = (raw, ev)
+        """Start each part's copy to its device on its shard's stream."""
+        for p in c.parts:
+            raw = host[c.lo + p.lo:c.lo + p.hi]
+            dev, stream = devs[p.shard], streams[p.shard]
+            if stream is None:
+                p.upload = (raw, None)
+                continue
+            with torch.cuda.stream(stream):
+                raw = raw.to(dev, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(stream)
+            p.upload = (raw, ev)
 
     @timed("scan")
     def stage_scan(c: _Chunk):
-        raw, ev = c.upload
-        c.upload = None
-        if ev is not None:
-            torch.cuda.current_stream(dev).wait_event(ev)
-            raw.record_stream(torch.cuda.current_stream(dev))
-        cap = device_planes(raw, dev, non_blocking=True)
-        c.scan = scan_stack(cap, c.fcs, c.fcp, f_search_set, fs_programmed,
+        caps = []
+        for p in c.parts:
+            (raw, ev), dev = p.upload, devs[p.shard]
+            p.upload = None
+            if ev is not None:
+                torch.cuda.current_stream(dev).wait_event(ev)
+                raw.record_stream(torch.cuda.current_stream(dev))
+            caps.append(device_planes(raw, dev, non_blocking=True))
+        scans = scan_shards(caps, [(p.lo, p.hi) for p in c.parts], c.fcs,
+                            c.fcp, f_search_set, fs_programmed,
                             share_banks=share_banks, non_blocking=True)
-        c.tables = HostFetch({"tables": c.scan.tables})
-        c.flat = flat_stack(cap)
+        for p, cap, sc in zip(c.parts, caps, scans):
+            p.scan, p.flat = sc, flat_stack(cap)
+            p.tables = HostFetch({"tables": sc.tables})
 
     @timed("tables")
     def stage_tables(c: _Chunk):
         """Collect the peak tables and plan the candidates (host)."""
-        tables = c.scan.host_tables(c.tables.wait()["tables"])
-        c.scan = c.tables = None
-        c.decode = StackDecode(
-            tables_to_peaks(tables, c.fcs, f_search_set, fs_programmed,
-                            fc_prog_list=c.fcp),
-            c.flat, n_cap, thresh2_n_sigma, interp)
-        c.flat = None
+        for p in c.parts:
+            tables = p.scan.host_tables(p.tables.wait()["tables"])
+            p.decode = StackDecode(
+                tables_to_peaks(tables, c.fcs[p.lo:p.hi], f_search_set,
+                                fs_programmed, fc_prog_list=c.fcp[p.lo:p.hi]),
+                p.flat, n_cap, thresh2_n_sigma, interp)
+            p.scan = p.tables = p.flat = None
 
     @timed("sync_dispatch")
     def stage_sync_dispatch(c: _Chunk):
-        c.decode.dispatch_sync()
+        for p in c.parts:
+            p.decode.dispatch_sync()
 
     @timed("sync_collect")
     def stage_sync_collect(c: _Chunk):
-        c.decode.collect_sync()
+        for p in c.parts:
+            p.decode.collect_sync()
 
     @timed("mib_dispatch")
     def stage_mib(c: _Chunk):
-        c.decode.dispatch_mib()
+        for p in c.parts:
+            p.decode.dispatch_mib()
 
     @timed("mib_collect")
     def stage_collect(c: _Chunk):
-        for b, cell in c.decode.collect_mib():
-            per_cap[c.lo + b].append(cell)
-            all_good.append(cell)
-        c.decode = None
+        for p in c.parts:
+            for b, cell in p.decode.collect_mib():
+                per_cap[c.lo + p.lo + b].append(cell)
+            p.decode = None
 
     def live(k: int) -> bool:
         return 0 <= k < n_chunks
@@ -201,4 +240,5 @@ def pipelined_search_sweep(capbufs, fc_list: Sequence[float],
         if live(i + 1):
             stage_scan(chunks[i + 1])
 
-    return per_cap, (dedup(all_good) if dedup_cells else all_good)
+    good = [c for cells in per_cap for c in cells]
+    return per_cap, (dedup(good) if dedup_cells else good)

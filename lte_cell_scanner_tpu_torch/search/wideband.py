@@ -7,9 +7,11 @@ tunes the dongle to every carrier in turn and captures 80 ms each
 of 1.92 Msps, e.g. a 15.36 or 30.72 Msps full-band LTE capture) holds
 every carrier of the band at once: this module channelizes it (a
 modulated filter bank of the io/frontend.py FIR, one strided convolution
-for all carriers) and hands the (B, 2, n) float32 channels, still on the
-card, to the batched sweep (parallel/fc_sweep.py), so that one 80 ms
-recording yields every cell in the band.
+for all the carriers of a card) and hands the (B, 2, n) float32 channels,
+still on the card, to the batched sweep (parallel/fc_sweep.py), so that
+one 80 ms recording yields every cell in the band. Over several cards,
+each card channelizes its own run of carriers from its own copy of the
+recording, so that no channel crosses between cards.
 
 The channelizer is plain PyTorch (``F.conv1d`` and elementwise products),
 as the JAX package leaves it to XLA outside any Pallas kernel; it runs in
@@ -33,7 +35,8 @@ from lte_cell_scanner_tpu_torch.io.frontend import (PASSBAND_HZ,
                                                     design_decimation_fir)
 from lte_cell_scanner_tpu_torch.models.cell import Cell
 from lte_cell_scanner_tpu_torch.parallel.fc_sweep import (
-    _cache_put, sharded_search_sweep)
+    _cache_put, all_cards_mesh, search_shard_stacks, shard_bounds,
+    sharded_search_sweep, sweep_devices)
 from lte_cell_scanner_tpu_torch.utils.device import (full_f32_matmuls,
                                                      resolve_device, upload)
 
@@ -290,26 +293,36 @@ def wideband_search_sweep(wide: np.ndarray, fs_in: float,
     """Channelize ``wide`` (complex, fs_in Sps, centred at fc_center) at
     every carrier of ``fc_list`` and run the batched search sweep
     (:func:`~lte_cell_scanner_tpu_torch.parallel.fc_sweep.sharded_search_sweep`,
-    ``sweep_kw``) on the 1.92 Msps channels, on ``device`` (``None``: the
-    CUDA card, raising without one; ``"cpu"``: the plain versions).
+    ``sweep_kw``) on the 1.92 Msps channels, on ``device``: ``None`` spans
+    every visible card the carriers divide over (the largest such count,
+    :func:`~lte_cell_scanner_tpu_torch.parallel.fc_sweep.all_cards_mesh`)
+    and raises without CUDA; a CapMesh, its shards; ``"cpu"``, the plain
+    versions. One host thread dispatches every shard, so on several cards
+    ``device="cuda:0"`` (one card) is expected to be faster until scaling
+    across cards is measured (PERF.md).
 
-    ``backend="torch"`` channelizes all carriers in one pass on the device,
-    and the channels stay there through the sweep; ``backend="numpy"`` is
-    the float64 per-carrier host reference (io/frontend.decimate_capture),
-    whose captures are then uploaded. Returns (cells_per_carrier, deduped)
-    like sharded_search_sweep.
+    ``backend="torch"`` channelizes on each shard's device only that
+    shard's run of carriers, from its own upload of the recording, and
+    the channels stay there through the sweep; ``backend="numpy"`` is the
+    float64 per-carrier host reference (io/frontend.decimate_capture),
+    whose captures are then uploaded. Returns (cells_per_carrier,
+    deduped) like sharded_search_sweep.
     """
-    dev = resolve_device(device)
+    if device is None:
+        device = all_cards_mesh(len(fc_list))
     if backend == "torch":
-        capbufs = channelize_batch(wide, fs_in, fc_center, fc_list,
-                                   device=dev)
-    elif backend == "numpy":
-        caps = [decimate_capture(wide, fs_in, freq_shift=fc - fc_center)
-                [:CAPLENGTH] for fc in fc_list]
-        n = min(len(c) for c in caps)
-        capbufs = np.stack([c[:n] for c in caps])
-    else:
+        devs = sweep_devices(None, device)
+        caps = [channelize_batch(wide, fs_in, fc_center, fc_list[lo:hi],
+                                 device=dev)
+                for dev, (lo, hi) in zip(devs, shard_bounds(len(fc_list),
+                                                            len(devs)))]
+        return search_shard_stacks(caps, list(fc_list),
+                                   np.asarray(f_search_set), **sweep_kw)
+    if backend != "numpy":
         raise ValueError(f"unknown backend {backend!r}")
-    return sharded_search_sweep(capbufs, list(fc_list),
-                                np.asarray(f_search_set), device=dev,
-                                **sweep_kw)
+    caps = [decimate_capture(wide, fs_in, freq_shift=fc - fc_center)
+            [:CAPLENGTH] for fc in fc_list]
+    n = min(len(c) for c in caps)
+    return sharded_search_sweep(np.stack([c[:n] for c in caps]),
+                                list(fc_list), np.asarray(f_search_set),
+                                device=device, **sweep_kw)

@@ -83,6 +83,65 @@ def test_table_full_fallback_matches_jax(monkeypatch):
         assert abs(g.freq_superfine - w.freq_superfine) < 0.5
 
 
+def test_table_full_redo_stays_on_device(monkeypatch):
+    """A full first-pass table (MAX_PEAKS lowered to 1) is redone by the
+    unbounded greedy search, PEAK_BOUND trips of the device loop, on the
+    scan's own device (ops/peak_torch.redo_full_tables): the host
+    peak_search is patched to raise, in ops/peak.py and under every name
+    that search/cell_search.py binds it to. The redone peaks equal the
+    JAX package's host search over its float64 scan (n_id_2, ind, freq),
+    and the cells the JAX cell_search's."""
+    from lte_cell_scanner_tpu.ops.peak import peak_search as jax_peaks
+    from lte_cell_scanner_tpu.ops.xcorr import xcorr_pss
+    from lte_cell_scanner_tpu.search.cell_search import detection_threshold
+    from lte_cell_scanner_tpu_torch.ops import peak as host_peak
+    from lte_cell_scanner_tpu_torch.ops import peak_torch
+    from lte_cell_scanner_tpu_torch.search import cell_search as cs
+
+    def host_search(*args, **kwargs):
+        raise AssertionError("the host peak_search ran")
+
+    host = host_peak.peak_search
+    for mod in (host_peak, cs):
+        for name, value in list(vars(mod).items()):
+            if value is host:
+                monkeypatch.setattr(mod, name, host_search)
+    runs = []
+    device_search = peak_torch.peak_search_device
+
+    def spy(packed, single, r_norm, ds_comb_arm,
+            max_peaks=peak_torch.MAX_PEAKS, early_exit=True):
+        table = device_search(packed, single, r_norm, ds_comb_arm,
+                              max_peaks, early_exit)
+        runs.append((max_peaks, packed.device, table))
+        return table
+
+    monkeypatch.setattr(cs, "MAX_PEAKS", 1)
+    monkeypatch.setattr(cs, "peak_search_device", spy)
+    monkeypatch.setattr(peak_torch, "peak_search_device", spy)
+    kw = dict(n_id_1=90, n_id_2=1, cp_type="normal", snr_db=10,
+              freq_offset=7.7e3, n_rb_dl=50, sfn_start=64, seed=3)
+    fset = np.arange(-3, 4) * 5e3
+    cap = synthetic_capture(**kw)
+    got = cs.cell_search(cap, 739e6, f_search_set=fset, device="cpu")
+    assert {m for m, _, _ in runs} == {1, peak_torch.PEAK_BOUND}
+    (dev, table), = [(d, t) for m, d, t in runs
+                     if m == peak_torch.PEAK_BOUND]
+    assert dev == table.device == torch.device("cpu")
+    r = xcorr_pss(cap, fset, 2, 739e6, 739e6, 1.92e6, backend="numpy")
+    want = jax_peaks(r.xc_incoherent_collapsed_pow,
+                     r.xc_incoherent_collapsed_frq,
+                     detection_threshold(r.sp_incoherent, r.n_comb_xc),
+                     fset, 739e6, 739e6, r.xc_incoherent_single, 2)
+    peaks = peak_torch.peaks_to_cells(table[0].numpy(), fset, 739e6, 739e6)
+    assert len(want) >= 2
+    assert [(c.n_id_2, c.ind, c.freq) for c in peaks] == \
+        [(c.n_id_2, c.ind, c.freq) for c in want]
+    cells = jax_cell_search(cap, 739e6, f_search_set=fset, backend="jax")
+    assert [getattr(g, f) for g in got for f in FIELDS] == \
+        [getattr(w, f) for w in cells for f in FIELDS] and cells
+
+
 def test_search_sets_full_grid():
     fcs, fset = generate_search_sets(739e6, 739e6, 100)
     assert list(fcs) == [739e6] and len(fset) == 31
@@ -120,7 +179,9 @@ def test_port_imports_no_jax():
             "bench_wideband.py"} <= {
         p.name for p in files if p.parent.name == "tools"}
     assert {"io/capture.py", "parallel/fc_sweep.py", "search/pipeline.py",
-            "io/frontend.py", "search/wideband.py"} <= {
+            "io/frontend.py", "search/wideband.py",
+            "parallel/sharded_search.py", "parallel/multihost.py",
+            "parallel/multichip_checks.py"} <= {
         f"{p.parent.name}/{p.name}" for p in files}
     for path in files:
         for name in _imports(path):

@@ -96,8 +96,9 @@ def test_fc_sweep_share_banks_matches_jax_pallas(planes_u8):
     _same_peaks(got, want)
     sigs = {fc_sweep._bank_signature(fc, fp, FSET, 1.92e6, 15, True)[2]
             for fc, fp in zip(FCS, FCP)}
-    (banks, bank_idx), = [v for k, v in fc_sweep._DEV_BANK_CACHE.items()
-                          if k[0] == tuple(FCS) and k[-1]]
+    # One cache entry per sweep and mesh: here one shard's (banks, idx).
+    ((banks, bank_idx),), = [v for k, v in fc_sweep._DEV_BANK_CACHE.items()
+                             if k[0] == tuple(FCS) and k[-1]]
     assert banks.shape[0] == len(sigs) < len(FCS)
     assert bank_idx.tolist()[0] == 0
 
