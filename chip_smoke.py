@@ -4,19 +4,22 @@ NVIDIA card.
 
     python3 chip_smoke.py
 
-Six paths of the port run on the card: the cell search on one capture
+Eight paths of the port run on the card: the cell search on one capture
 (search/cell_search.py), the batched tracker engine (tracker/,
 LTETracker), the tools (tools/: bench_scan, bench_viterbi, bench_decode,
 bench_demod, bench_tracker, mc_search, bench_wideband), the batched fc
 sweep (parallel/fc_sweep.py, search/pipeline.py, the CLI's
 --batch-sweep), the wideband front end (io/frontend.py,
-search/wideband.py, the CLI's --wideband) and the multi-device paths
+search/wideband.py, the CLI's --wideband), the multi-device paths
 (parallel/: the sweeps' cap axis, the (seq, hyp)-sharded scan, the
-torch.distributed collective path).
+torch.distributed collective path, the tracker cycle's cell axis), the
+tracker CLI's file playback (tracker/cli.py --load) and the tracker with
+the C++ sample feeder and the CE tap (tracker/native_feeder.py).
 Phases; the script exits non-zero if any fails:
 
-1. Print the card (nvidia-smi name and power limit) and build the CUDA
-   sources from csrc/ (one nvcc each, started together).
+1. Print the card (nvidia-smi name and power limit), build the CUDA
+   sources from csrc/ (one nvcc each, started together) and the C++
+   feeder (native/feeder.cpp, g++, into build/native/).
 2. Hold each kernel against its plain PyTorch version at the shapes of its
    path: the scan at 80 ms and the full 31-hypothesis grid (plus an
    extreme +-600 kHz grid), in both layouts (the 2x2 kernel K1 and the
@@ -86,7 +89,14 @@ Phases; the script exits non-zero if any fails:
    process group running the (seq 2, hyp 2) scan through all_reduce and
    all_gather; the whole stack's ms per carrier at 1 and 2 shards, K1 at
    B = 32 against B = 64 and the (seq, hyp) scan at (1,1), (2,1), (1,2)
-   and (2,2) shards against the unsharded scan.
+   and (2,2) shards against the unsharded scan; dryrun_multichip also
+   splits a tracker cycle of 8 cells over its 4 shards; the tracker cycle
+   at the capacity run's full width (96 cells x 300 ms) with its cell axis
+   split over two shards on cuda:0 and over every visible card, held to
+   the one-device run (check_tracker_cells_sharded: demod, CE rows, ac_td
+   history and FOE/TOE bit-equal, K4's stream mode launched once per
+   shard), and its demod and stats programs timed unsplit and split
+   (CUDA events).
 4. Time each kernel, its plain version and its library yardstick (K1:
    F.conv1d of the 2x2 blocks; K3: the grouped F.conv1d of its three real
    correlations; K4: torch.fft.fft and a dense f32 matmul, both partial;
@@ -98,8 +108,19 @@ Phases; the script exits non-zero if any fails:
    (96 replicated cells, 300 ms cycles, host clock ending in a sync,
    median cycle), its stage split and its device-busy share; and the
    host cost of a launch's device guard.
+5. The tracker as its users run it, with the launch counts set to 0 just
+   before and read just after each drive: the CLI playing the tracker's
+   simulated cell (2.1 s, noise power 0.01) from an .it file and from raw
+   rtl_sdr bytes (--load [--rtl-sdr-format] --no-repeat --noise-power
+   --blocks 400, subprocesses), then in this process with --feeder native
+   --expert --g2 1.5: cell 271 acquired and its status rows printed; the
+   tracker with the C++ feeder against the Python feeder on the card
+   (cells, MIB decodes; every descriptor against a Python feeder fed the
+   same blocks and cell states), both with a CE tap, the Python
+   run's taps against a CPU run's (the same symbols, CE within one
+   float16 step); the feeders' host ms per block at 1 and 96 cells.
 
-Each kernel's ``launches`` in the kernels line is the sum over the six
+Each kernel's ``launches`` in the kernels line is the sum over the eight
 paths' runs, ``launches_by_path`` the split. The line before the last is
 {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
@@ -181,6 +202,26 @@ WB_PLANTS = (
                    freq_offset=-3e3, n_rb_dl=25, sfn_start=300, seed=13),
      (302, "normal", 25, 1, 300, "normal", 1.0)))
 WB_EMPTY = (739.0e6, 745.5e6)     # more than 1 MHz from every plant
+
+# The tracker as its users run it (LTE-Tracker): the CLI plays a recording
+# of the tracker's simulated cell (2.1 s, so that --no-repeat --blocks 400
+# prints two status frames) with added noise, from an .it file and from raw
+# rtl_sdr bytes; trackers with the Python and the C++ feeder and a CE tap
+# on TAP_BLOCKS blocks; the feeders' host time per block (median of
+# FEEDER_BLOCKS after FEEDER_WARM) at 1 and 96 cells of distinct IDs.
+PLAY_SUBFRAMES, PLAY_NOISE, PLAY_BLOCKS = 2100, 0.01, 400
+PLAYBACK_KERNELS = ("xcorr_fold", "fd_demod", "fd_demod_stream", "viterbi")
+TAP_BLOCKS, FEEDER_BLOCKS, FEEDER_WARM = 300, 24, 3
+# The CE tap's tolerance: one float16 step (rtol 1e-3 + atol 1e-3 x max),
+# that of tests/test_torch_tracker_engine.py::test_ce_tap_matches_jax.
+CE_RTOL = 1e-3
+
+
+def tapped(slot: int, sym: int) -> bool:
+    """The CE tap's symbols (tests/test_torch_tracker_engine.py::_tapped):
+    slots no other consumer reads, so the tap adds consumers."""
+    return slot in (3, 13) and sym in (0, 2, 4)
+
 
 # Flops of csrc/fd_demod.cu's 128-point FFT per window: 8 in-register
 # DFT_16 (188 flops each: 16 complex adds, 6 twiddle products, two DFT_8
@@ -1297,6 +1338,65 @@ def turns(fns: dict, n: int) -> dict:
     return {k: (float(np.median(v)), v) for k, v in runs.items()}
 
 
+def tracker_split(drive, n_cards: int) -> dict:
+    """The tracker's cell axis: one real engine cycle at the capacity run's
+    full width (CAP_CELLS cells x CHUNK_MS) with its demod and stats
+    programs split over two shards on cuda:0 and over every visible card
+    (``check_tracker_cells_sharded``, driven through ``drive``), then each
+    program timed unsplit and over two shards on cuda:0. Returns the
+    times, {program and layout: [ms, ms]}."""
+    from lte_cell_scanner_tpu_torch.parallel.multichip_checks import (
+        check_tracker_cells_sharded, run_tracker_shards, split_tracker_cycle,
+        tracker_cycle)
+    from lte_cell_scanner_tpu_torch.tracker import batch_runtime as br
+
+    for what, kw in (("2 shards on cuda:0",
+                      dict(n_devices=2, devices=["cuda:0"] * 2)),
+                     (f"every visible card ({n_cards})",
+                      dict(n_devices=n_cards))):
+        what = f"tracker cycle {CAP_CELLS} cells x {CHUNK_MS:.0f} ms, {what}"
+        t1 = time.perf_counter()
+        try:
+            res, _ = drive(what, lambda: check_tracker_cells_sharded(
+                cells=CAP_CELLS, cycle_ms=CHUNK_MS, verbose=True, **kw))
+        except AssertionError as e:
+            check(False, f"{what}: {e}")
+            continue
+        k4 = res["launches"]["fd_demod_stream"]
+        worst = {f: v for f, v in res["fields"].items() if v[0] != v[1]}
+        check(k4 == kw["n_devices"],
+              f"{what} ({time.perf_counter() - t1:.1f} s): shards "
+              f"{res['shards']}, {res['triples']} triples; demod, CE rows, "
+              f"ac_td history and FOE/TOE bit-equal to one device's, the "
+              f"diagnostic lanes within the JAX bound (not bit-equal: "
+              f"{worst or 'none'}); fd_demod_stream launched {k4} time(s) "
+              f"in the split run (want {kw['n_devices']}: once per shard)")
+    # The split against the unsplit cycle on cuda:0, each program timed
+    # with CUDA events (median of REPS), twice in turns.
+    da, sa = tracker_cycle(CAP_CELLS, "cuda:0", CHUNK_MS)
+    shards = split_tracker_cycle(da, sa, ["cuda:0"] * 2)
+    ce1 = br._demod_stream(*da)[1]
+    outs = run_tracker_shards(shards)
+    fns = {
+        "demod, 1 device": lambda: br._demod_stream(*da),
+        "demod, 2 shards": lambda: [br._demod_stream(*sh["demod"])
+                                    for sh in shards],
+        "stats, 1 device": lambda: br._stats(ce1, *sa[1:]),
+        "stats, 2 shards": lambda: [br._stats(o[1], *sh["stats"],
+                                              sh["n_seg"])
+                                    for sh, o in zip(shards, outs)]}
+    split = {}
+    for _ in range(2):
+        for k, fn in fns.items():
+            split.setdefault(k, []).append(cuda_ms(fn))
+    print(f"multi: tracker cycle {CAP_CELLS} cells x {CHUNK_MS:.0f} ms "
+          f"({da[1].numel()} windows, {sa[2].shape[0]} triples) on cuda:0, "
+          f"ms (CUDA events, median of {REPS}, twice in turns): " + ", ".join(
+              f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in split.items())
+          + f"; {card_line()}", flush=True)
+    return split
+
+
 def multi_path(sweep: dict, wband: dict, fset) -> dict:
     """The multi-device paths on the card, with the kernels' launch counts
     set to 0 just before each drive and read just after (summed into the
@@ -1309,8 +1409,9 @@ def multi_path(sweep: dict, wband: dict, fset) -> dict:
     (seq 2, hyp 2), its float32 tables within SCAN_RTOL x max of the
     unsharded K1 scan; a world-size-1 NCCL process group and one
     sharded_xcorr_pss through the collective path, against the same
-    mesh in one process. Times the whole stack at 1 and 2 shards (ms per
-    carrier), K1 at B = 32 against B = 64 in one launch, and the (seq,
+    mesh in one process; the tracker cycle's cell axis
+    (:func:`tracker_split`). Times the whole stack at 1 and 2 shards (ms
+    per carrier), K1 at B = 32 against B = 64 in one launch, and the (seq,
     hyp) scan at (1,1), (2,1), (1,2), (2,2) shards against the unsharded
     scan (host clock, in turns)."""
     import socket
@@ -1449,9 +1550,14 @@ def multi_path(sweep: dict, wband: dict, fset) -> dict:
               f"unsharded K1 scan (want <= {SCAN_RTOL:g}), frq equal but at "
               "near ties; the cap-axis sweep and the pipelined check "
               f"({dry['pipelined']['cells']} cells, bit-equal "
-              f"{dry['pipelined']['bit_equal']}) equal one shard's")
+              f"{dry['pipelined']['bit_equal']}) equal one shard's; the "
+              f"tracker cycle ({dry['tracker']['cells']} cells in shards of "
+              f"{dry['tracker']['shards']}) equals one device's (bit-equal: "
+              f"{dry['tracker']['bit_equal']})")
     except AssertionError as e:
         check(False, f"dryrun_multichip on cuda:0 x 4: {e}")
+
+    out["split_ms"] = tracker_split(drive, n_cards)
 
     # The (seq, hyp) scan: each layout on cuda:0 against the unsharded
     # K1 scan, in turns (host clock: planning, uploads, the scan and the
@@ -1509,6 +1615,246 @@ def multi_path(sweep: dict, wband: dict, fset) -> dict:
     return out
 
 
+def playback_path() -> dict:
+    """LTE-Tracker as its users run it: the tracker's simulated cell
+    written to build/chip_smoke as an .it file and as raw rtl_sdr bytes,
+    each played through the CLI in a subprocess (``--load FILE
+    [--rtl-sdr-format] --no-repeat --noise-power P --blocks 400``), which
+    must acquire cell 271 and print its status rows; then the same CLI in
+    this process with ``--feeder native --expert --g2 1.5``, with the
+    kernels' launch counts set to 0 just before and read just after."""
+    import contextlib
+    import io
+
+    import torch
+
+    from lte_cell_scanner_tpu_torch import kernels
+    from lte_cell_scanner_tpu_torch.io.itfile import save_it
+    from lte_cell_scanner_tpu_torch.io.raw import iq_to_bytes
+    from lte_cell_scanner_tpu_torch.io.simulator import synthetic_capture
+    from lte_cell_scanner_tpu_torch.tracker import cli
+
+    d = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(d, exist_ok=True)
+    sig = synthetic_capture(n_subframes=PLAY_SUBFRAMES, **TRACKER_SIG)
+    files = {"it": os.path.join(d, "track.it"),
+             "raw": os.path.join(d, "track.raw")}
+    save_it(files["it"], {"capbuf": sig})
+    iq_to_bytes(sig).tofile(files["raw"])
+    base = ["-f", "739e6", "--no-repeat", "--noise-power", str(PLAY_NOISE),
+            "--blocks", str(PLAY_BLOCKS)]
+
+    def acquired(text, what, secs):
+        rows = [ln for ln in text.splitlines() if ln.split()[:1] == ["271"]]
+        print("\n".join(text.splitlines()[-4:]))
+        check("[cell_acquired] {'n_id_cell': 271" in text and len(rows) == 2
+              and all("100.0%" in r for r in rows),
+              f"tracker CLI {what} ({secs:.1f} s): acquires cell 271 and "
+              f"prints its status row in {len(rows)} of 2 frames at 100% "
+              "health")
+        return text
+
+    out = {}
+    for what, extra in (("it", []), ("raw", ["--rtl-sdr-format"])):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "lte_cell_scanner_tpu_torch.tracker.cli",
+             "--load", files[what], *extra, *base],
+            cwd=HERE, capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        if r.returncode != 0:
+            print(r.stderr[-2000:])
+        check(r.returncode == 0, f"tracker CLI --load {what}: exit code "
+              f"{r.returncode}")
+        acquired(r.stdout, f"--load {files[what]} {' '.join(extra + base)}",
+                 secs)
+        out[f"{what}_s"] = secs
+    argv = ["--load", files["it"], *base, "--feeder", "native", "--expert",
+            "--g2", "1.5"]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    out["launches"] = dict(kernels.LAUNCHES)
+    out["native_s"] = time.perf_counter() - t0
+    text = acquired(buf.getvalue(), " ".join(argv), out["native_s"])
+    check(rc == 0 and "debug: g2=1.5" in text.splitlines(),
+          "tracker CLI --feeder native --expert --g2 1.5 (in process): "
+          "exit code 0 and the expert status prints 'debug: g2=1.5'")
+    print(f"playback path launches: {json.dumps(out['launches'])}",
+          flush=True)
+    for name in PLAYBACK_KERNELS:
+        check(out["launches"][name] > 0, f"{name} launched "
+              f"{out['launches'][name]} time(s) on the CLI playback path")
+    return out
+
+
+def feeder_ms(n_cells: int) -> dict:
+    """Host milliseconds per 10,000-sample block of each sample feeder
+    over n_cells cells of distinct IDs (median of FEEDER_BLOCKS after
+    FEEDER_WARM), as the tracker's step pays them: the Python feeder with
+    the uint8-to-complex conversion, the C++ feeder on the raw bytes."""
+    from lte_cell_scanner_tpu_torch.io.raw import bytes_to_iq, iq_to_bytes
+    from lte_cell_scanner_tpu_torch.tracker.native_feeder import (
+        NativeSampleFeeder)
+    from lte_cell_scanner_tpu_torch.tracker.producer import SampleFeeder
+    from lte_cell_scanner_tpu_torch.tracker.state import (GlobalState,
+                                                          TrackedCell)
+
+    n_blk = FEEDER_BLOCKS + FEEDER_WARM
+    rng = np.random.default_rng(0)
+    raw = iq_to_bytes((rng.standard_normal(n_blk * 10000)
+                       + 1j * rng.standard_normal(n_blk * 10000)) * 0.2)
+    feed = {"python": lambda f, b, cells: f.feed(bytes_to_iq(b), cells),
+            "native": lambda f, b, cells: f.feed_bytes(b, cells)}
+    out = {}
+    for name, cls in (("python", SampleFeeder),
+                      ("native", NativeSampleFeeder)):
+        f = cls(GlobalState(FC, FC, 1.92e6, 4000.0))
+        cells = [TrackedCell(n_id_cell=5 * i, n_ports=1, cp_type="normal",
+                             n_rb_dl=50, phich_duration="normal",
+                             phich_resource=1.0,
+                             frame_timing=(i * 197.3) % 19200)
+                 for i in range(n_cells)]
+        times = []
+        for k in range(n_blk):
+            b = raw[2 * k * 10000:2 * (k + 1) * 10000]
+            t0 = time.perf_counter()
+            feed[name](f, b, cells)
+            times.append((time.perf_counter() - t0) * 1e3)
+            n_pdu = sum(len(c.fifo) for c in cells)
+            for c in cells:
+                c.fifo.clear()
+        out[name] = float(np.median(times[FEEDER_WARM:]))
+    out["pdus_per_block"] = n_pdu
+    return out
+
+
+def native_path(sig) -> dict:
+    """The sample feeders and the CE tap on the card: trackers with the
+    Python and the C++ feeder, each with the CE tap, on TAP_BLOCKS blocks
+    of the tracker's simulated cell (the native run with the launch
+    counts set to 0 just before and read just after): the same cells and
+    MIB decodes; in the native run a Python feeder fed the same blocks
+    and cell states must cut the same windows (start, slot, sym; late
+    within 1e-6); the Python run's CE taps against a CPU run's (the same
+    symbols, values within one float16 step); then the feeders' host ms
+    per block at 1 and 96 cells."""
+    import torch
+
+    from lte_cell_scanner_tpu_torch import kernels
+    from lte_cell_scanner_tpu_torch.io.raw import bytes_to_iq
+    from lte_cell_scanner_tpu_torch.tracker.producer import SampleFeeder
+    from lte_cell_scanner_tpu_torch.tracker.runtime import (LTETracker,
+                                                            playback_source)
+
+    shadow = {"n": 0, "bad": 0, "late": 0.0}
+
+    def tee(trk):
+        """Feed a Python feeder the native feeder's blocks and cell
+        states (copies of the cells, frame timing refreshed each block)
+        and compare the windows the two cut from each block."""
+        py_feed, native_feed, copies = (SampleFeeder(trk.state),
+                                        trk.feeder.feed_bytes, {})
+
+        def feed_bytes(raw, cells):
+            mine = []
+            for c in cells:
+                k = (c.n_id_cell, c.serial_num)
+                if k not in copies:
+                    copies[k] = dataclasses.replace(c, fifo=type(c.fifo)())
+                copies[k].frame_timing, copies[k].kill_me = (c.frame_timing,
+                                                            c.kill_me)
+                mine.append(copies[k])
+            before = [len(c.fifo) for c in cells]
+            py_feed.feed(bytes_to_iq(raw), mine)
+            native_feed(raw, cells)
+            for c, m, n0 in zip(cells, mine, before):
+                got, want = list(c.fifo)[n0:], list(m.fifo)
+                m.fifo.clear()
+                shadow["n"] += len(got)
+                shadow["bad"] += len(got) != len(want) or any(
+                    (a.start, a.slot_num, a.sym_num)
+                    != (b.start, b.slot_num, b.sym_num)
+                    for a, b in zip(got, want))
+                shadow["late"] = max([shadow["late"]] + [
+                    abs(a.late - b.late) for a, b in zip(got, want)])
+
+        trk.feeder.feed_bytes = feed_bytes
+
+    def run(feeder, device=None):
+        taps = []
+        trk = LTETracker(FC, initial_freq_offset=4000.0, feeder=feeder,
+                         ce_observer=(tapped, lambda *a: taps.append(a)),
+                         device=device)
+        if feeder == "native":
+            tee(trk)
+        t0 = time.perf_counter()
+        trk.run(playback_source(sig), max_blocks=TAP_BLOCKS)
+        torch.cuda.synchronize()
+        return trk.status(), taps, time.perf_counter() - t0
+
+    out = {}
+    py = run("python")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    na = run("native")
+    out["launches"] = lc = dict(kernels.LAUNCHES)
+    print(f"native feeder path launches: {json.dumps(lc)} ({na[2]:.1f} s "
+          f"for {TAP_BLOCKS} blocks with the Python feeder beside; the "
+          f"Python feeder alone {py[2]:.1f} s)", flush=True)
+    for name in TRACKER_KERNELS:
+        check(lc[name] > 0, f"{name} launched {lc[name]} time(s) on the "
+              "native feeder path")
+    cells = [[(c["n_id_cell"], c["mib_successes"], c["health"])
+              for c in r[0]["cells"]] for r in (py, na)]
+    check(cells[0] == cells[1] and [c[0] for c in cells[1]] == [271],
+          f"native feeder on the card: cells (id, MIB decodes, health) "
+          f"{cells[1]} equal the Python feeder's run's {cells[0]}; FO "
+          f"{na[0]['frequency_offset']:.4f} / "
+          f"{py[0]['frequency_offset']:.4f} Hz")
+    check(shadow["n"] > 1000 and not shadow["bad"]
+          and shadow["late"] <= 1e-6,
+          f"native feeder's {shadow['n']} descriptors against a Python "
+          f"feeder's on the same blocks and cell states: (start, slot, sym) "
+          f"differ in {shadow['bad']} block(s), late within "
+          f"{shadow['late']:.3e} (want <= 1e-6)")
+    out["late"] = shadow["late"]
+
+    cpu = run("python", "cpu")
+    seq_ok = [t[:3] for t in py[1]] == [t[:3] for t in cpu[1]]
+    errs = {}
+    if seq_ok and py[1]:
+        for i, name in ((3, "CE"), (4, "SP"), (5, "NP")):
+            g = np.stack([t[i] for t in py[1]])
+            w = np.stack([t[i] for t in cpu[1]])
+            errs[name] = (float(np.abs(g - w).max()),
+                          float(np.abs(w).max()),
+                          bool((np.abs(g - w) <= CE_RTOL * np.abs(w)
+                                + CE_RTOL * np.abs(w).max()).all()))
+    check(seq_ok and len(py[1]) > 20 and all(e[2] for e in errs.values()),
+          f"CE tap on the card against the CPU run: {len(py[1])} / "
+          f"{len(cpu[1])} taps, (n_id, slot, sym) equal: {seq_ok}; max abs "
+          f"err (of max) " + ", ".join(f"{k} {e[0]:.3e} ({e[1]:.3e})"
+                                       for k, e in errs.items())
+          + f" (tolerance rtol {CE_RTOL:g} + {CE_RTOL:g} x max); FO card "
+          f"{py[0]['frequency_offset']:.4f}, CPU "
+          f"{cpu[0]['frequency_offset']:.4f} Hz")
+    out["ce_err"] = errs
+    for n in (1, CAP_CELLS):
+        t = feeder_ms(n)
+        out[f"feeder_ms_{n}"] = t
+        print(f"feeder host ms per 10,000-sample block at {n} cell(s) "
+              f"({t['pdus_per_block']} descriptors; median of "
+              f"{FEEDER_BLOCKS}): python {t['python']:.3f}, native "
+              f"{t['native']:.3f} ({t['python'] / t['native']:.1f}x); "
+              f"{card_line()}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1531,6 +1877,8 @@ def main() -> int:
         from lte_cell_scanner_tpu_torch.search.cell_search import (
             cell_search, dedup, generate_search_sets)
         from lte_cell_scanner_tpu_torch.tracker import batch_runtime as br
+        from lte_cell_scanner_tpu_torch.tracker.native_feeder import (
+            build_native)
         from lte_cell_scanner_tpu_torch.tracker.runtime import (
             LTETracker, playback_source)
         from lte_cell_scanner_tpu_torch.utils.device import full_f32_matmuls
@@ -1558,6 +1906,9 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"    {line.strip()}")
+    t0 = time.perf_counter()
+    print(f"native feeder: {build_native()} ({time.perf_counter() - t0:.2f} "
+          "s, g++)", flush=True)
 
     # ---- 2. kernels vs plain versions at main-path shapes.
     _, fset31 = generate_search_sets(FC, FC, 100)
@@ -2095,6 +2446,18 @@ def main() -> int:
                      4 * (llr.numel() + 1024 + 1024 * 4 + 4 * n_steps * n))
 
     vit_b, vit_trk_b = vit_bound(llr_tl), vit_bound(llr_trk)
+
+    # The tracker as its users run it, after the timings above: the CLI's
+    # file playback, the native feeder and the CE tap.
+    t0 = time.perf_counter()
+    play = playback_path()
+    print(f"playback path: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    native = native_path(sig_trk)
+    print(f"native feeder path: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    path_launches.update(playback=play["launches"],
+                         native=native["launches"])
     print(f"viterbi at the tracker batch L={n_trk_cw}: {t_vit_trk:.4f} ms "
           f"(plain {t_vit_trk_plain:.4f} ms, bound {vit_trk_b[0]:.4f} ms by "
           f"{vit_trk_b[1]})")
@@ -2142,7 +2505,7 @@ def main() -> int:
              plain_ms=t_vit_plain, bound_ms=vit_b[0], bound_by=vit_b[1],
              library_ms=None),
     ]
-    # Each kernel's launches over the five paths' runs, and by path.
+    # Each kernel's launches over the paths' runs, and by path.
     for r in rows:
         by_path = {p: n[r["name"]] for p, n in path_launches.items()
                    if n[r["name"]]}

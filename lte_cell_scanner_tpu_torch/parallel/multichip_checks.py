@@ -3,8 +3,9 @@
 Counterpart of lte_cell_scanner_tpu/parallel/multichip_checks.py and of
 the JAX package's ``__graft_entry__.dryrun_multichip``: the (seq, hyp)
 scan at production shape held to the unsharded scan, the cap-axis
-sweep, and the pipelined sweep on an N-shard mesh held to the one-shard
-run. Devices may repeat (``("cpu",) * 4``, ``("cuda:0",) * 4``), so that
+sweep and the pipelined sweep on an N-shard mesh held to the one-shard
+run, and one tracker engine cycle with its cell axis split over N shards
+held to the one-device run. Devices may repeat (``("cpu",) * 4``, ``("cuda:0",) * 4``), so that
 the checks run on one host or one card with the work really split.
 
 Tolerances:
@@ -24,8 +25,10 @@ Tolerances:
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
+import torch
 
 SCAN_RTOL = 1e-5
 DECODED = ("n_id_2", "n_id_1", "cp_type", "n_rb_dl", "n_ports", "sfn",
@@ -219,6 +222,307 @@ def check_pipelined_sweep_multidevice(n_devices: int, n_sweep: int = None,
     return {"cells": n_cells, "bit_equal": bit_equal}
 
 
+# ----------------------------------------------------------------------
+# The tracker's cell axis (counterpart of the JAX check_tracker_cells_sharded).
+
+TRACKER_DEMOD = ("kept", "sync_tp", "sync_sp", "sync_np", "sync_np_blank",
+                 "sync_ce")
+TRACKER_STATS = ("foe_ang", "foe_np", "delay", "delay_np", "ce_filt", "scal",
+                 "ac_sum", "acw_sum", "carry_out", "td_xc")
+# Lanes that the feedback loops read, held exact; the other stats lanes are
+# diagnostics, held to the JAX check's bound (rtol 2e-2, atol 2e-3, >= 99%
+# of the stats payload exact).
+TRACKER_EXACT = ("foe_ang", "foe_np", "delay", "delay_np")
+
+
+@functools.lru_cache(maxsize=2)
+def _tracker_harvest(device: str):
+    """tools/bench_tracker's harvest on ``device``: the descriptor PDUs of
+    one tracked simulated cell over ~0.4 s of signal and the raw blocks
+    they index (cached: a check per shard count reuses it)."""
+    from lte_cell_scanner_tpu_torch.tools.bench_tracker import _collect_pdus
+
+    return _collect_pdus(0.4, torch.device(device))
+
+
+def tracker_cycle(cells: int, device, cycle_ms: float = 20.0):
+    """One real engine cycle of ``cells`` replicas of a tracked simulated
+    cell (distinct serials, never dropped) fed ``cycle_ms`` of harvested
+    PDUs each, on ``device``. Returns the arguments the engine passed to
+    its two device programs, (demod_args, stats_args), tapped as the JAX
+    check taps its jitted programs."""
+    import lte_cell_scanner_tpu_torch.tracker.batch_runtime as br
+    from lte_cell_scanner_tpu_torch.tracker.state import (GlobalState,
+                                                          TrackedCell)
+
+    dev = torch.device(device)
+    pdus, raw_blocks, proto = _tracker_harvest(str(dev))
+    n_feed = int(cycle_ms / 1000 * proto.n_symb_dl * 2000)
+    if len(pdus) < n_feed:
+        raise RuntimeError(f"tracker_cycle: {len(pdus)} PDUs harvested, "
+                           f"{n_feed} asked for")
+    state = GlobalState(fc_requested=739e6, fc_programmed=739e6,
+                        fs_programmed=1.92e6, frequency_offset=4000.0)
+    cs = [TrackedCell(
+        n_id_cell=proto.n_id_cell, n_ports=proto.n_ports,
+        cp_type=proto.cp_type, n_rb_dl=proto.n_rb_dl,
+        phich_duration=proto.phich_duration,
+        phich_resource=proto.phich_resource,
+        frame_timing=proto.frame_timing, serial_num=m,
+        drop_threshold=float("inf")) for m in range(cells)]
+    engine = br.BatchTrackerEngine(state, device=dev)
+    for blk in raw_blocks:
+        engine.push_raw(blk)
+    for c in cs:
+        c.fifo.extend(pdus[:n_feed])
+    rec = {}
+    orig = br._demod_stream, br._stats
+
+    def tap_demod(*a):
+        rec["demod"] = a
+        return orig[0](*a)
+
+    def tap_stats(*a):
+        rec["stats"] = a
+        return orig[1](*a)
+
+    br._demod_stream, br._stats = tap_demod, tap_stats
+    try:
+        engine.process_all(cs)
+    finally:
+        br._demod_stream, br._stats = orig
+    if "demod" not in rec or "stats" not in rec:
+        raise RuntimeError("tracker_cycle: the engine cycle never ran")
+    return rec["demod"], rec["stats"]
+
+
+def _rebase_rows(g: np.ndarray, a: int, b: int, C: int, R: int, P: int):
+    """Row indices of the stats program's combined row space (the carry
+    block (C, P, 2), then the cycle's CE rows (C, R, P)) as the shard of
+    cells [a, b) numbers them. Returns (local, owned): an index of another
+    shard's cell must be the engine's placeholder 0 and becomes local 0,
+    not owned."""
+    n_car = C * P * 2
+    carry = g < n_car
+    cell = np.where(carry, g // (2 * P), (g - n_car) // (R * P))
+    owned = (cell >= a) & (cell < b)
+    if not (owned | (g == 0)).all():
+        raise AssertionError("a row index crosses shards")
+    local = np.where(carry, g - a * 2 * P,
+                     (b - a) * 2 * P + (g - n_car) - a * R * P)
+    return np.where(owned, local, 0), owned
+
+
+def split_tracker_cycle(demod_args, stats_args, devices) -> list:
+    """Cut one engine cycle's program arguments by cell into
+    ``len(devices)`` shards of consecutive cells (sizes differing by at
+    most one, so any shard count divides any cell count), shard k on
+    ``devices[k]``. The raw stream segment is replicated; every per-cell
+    array is cut; every index into the stats program's combined row space
+    (``tri``, ``carry_idx``, ``td_rows``, ``td0_rows``), the segment ids,
+    the emit rows and ``td0_sp`` (triple numbers) are rebased to the
+    shard. A shard's triples are a contiguous run: segments are ordered
+    by cell. Returns one dict per shard."""
+    np_ = {k: v.cpu().numpy() for k, v in zip(
+        ("tri", "pl", "seg_id", "emit", "carry_idx", "td_rows", "td_new",
+         "td0_rows", "td0_new", "td0_sp"), stats_args[2:12])}
+    ce_dev = stats_args[0]
+    C, R, P = ce_dev.shape[:3]
+    seg_id = np_["seg_id"]
+    if (np.diff(seg_id) < 0).any() or seg_id[0] >= C:
+        raise AssertionError("cycle without ordered triples")
+    k72 = np.arange(72)[None, :]
+    bounds = np.cumsum([0] + [len(x) for x in np.array_split(
+        np.arange(C), len(devices))])
+    shards = []
+    for dev, a, b in zip(devices, bounds[:-1], bounds[1:]):
+        a, b = int(a), int(b)
+        Cs, dev = b - a, torch.device(dev)
+        ta, tb = (int(x) for x in np.searchsorted(seg_id, [a, b]))
+
+        def put(x, dev=dev):
+            if isinstance(x, np.ndarray):
+                x = torch.from_numpy(np.ascontiguousarray(x))
+            return x.to(dev)
+
+        demod = (put(demod_args[0]),) + tuple(
+            put(x[a:b]) for x in demod_args[1:])
+        tri, tri_own = _rebase_rows(np_["tri"][ta:tb], a, b, C, R, P)
+        if not tri_own.all():
+            raise AssertionError("a triple reads another shard's rows")
+        pl, seg = np_["pl"][ta:tb], np_["seg_id"][ta:tb] - a
+        if tb == ta:                   # no triple: the engine's padding
+            tri, pl = np.zeros((1, 3), np.int64), np.zeros(1, bool)
+            seg = np.full(1, Cs, np.int64)
+        emit = np_["emit"]
+        emit_pos = np.nonzero((emit >= ta) & (emit < tb))[0]
+        emit_s = emit[emit_pos] - ta if len(emit_pos) else np.zeros(1,
+                                                                    np.int64)
+        carry_idx, carry_own = _rebase_rows(np_["carry_idx"][a:b], a, b, C,
+                                            R, P)
+        rows = slice(a * P, b * P)
+        td = {}
+        for name, new in (("td_rows", "td_new"), ("td0_rows", "td0_new")):
+            used = k72 >= 72 - np_[new][rows][:, None]
+            loc, own = _rebase_rows(np_[name][rows], a, b, C, R, P)
+            if not own[used].all():
+                raise AssertionError(f"{name} reads another shard's rows")
+            td[name] = np.where(used, loc, 0)
+        sp = np_["td0_sp"][rows]
+        td_own = (sp >= ta) & (sp < tb)
+        if not (td_own | (sp == 0)).all():
+            raise AssertionError("td0_sp names another shard's triple")
+        stats = tuple(put(x) for x in (
+            stats_args[1][a:b], tri, pl, seg, emit_s, carry_idx,
+            td["td_rows"], np_["td_new"][rows], td["td0_rows"],
+            np_["td0_new"][rows], np.where(td_own, sp - ta, 0),
+            stats_args[12][rows]))
+        shards.append(dict(cells=(a, b), device=dev, demod=demod,
+                           stats=stats, n_seg=Cs + 1, triples=(ta, tb),
+                           emit_pos=emit_pos, carry_owned=carry_own,
+                           td_owned=td_own))
+    return shards
+
+
+def run_tracker_shards(shards) -> list:
+    """Every shard's demod program (the K4 stream kernel once per shard on
+    the card), then every shard's stats program on its own demod's CE
+    rows. Returns per shard [demod flat, CE rows, stats flat, td_hist]."""
+    import lte_cell_scanner_tpu_torch.tracker.batch_runtime as br
+
+    outs = [list(br._demod_stream(*sh["demod"])) for sh in shards]
+    for sh, o in zip(shards, outs):
+        o.extend(br._stats(o[1], *sh["stats"], sh["n_seg"]))
+    return outs
+
+
+def _merge_tracker_shards(shards, outs, C, P, Q, K, T, E):
+    """The shards' results unpacked and placed at their global rows:
+    ({field: array}, {field: mask of the entries placed})."""
+    import lte_cell_scanner_tpu_torch.tracker.batch_runtime as br
+
+    got, mask = {}, {}
+
+    def place(field, where, value, shape, m=True):
+        if field not in got:
+            got[field] = np.full(shape, np.nan)
+            mask[field] = np.zeros(shape, bool)
+        got[field][where] = value
+        mask[field][where] = m
+
+    d_shapes = dict(zip(TRACKER_DEMOD, br.demod_shapes(C, Q, K)))
+    s_shapes = dict(zip(TRACKER_STATS, (
+        sh[1] if sh[0] == "f32" else sh
+        for sh in br.stats_shapes(T, E, C, P))))
+    # The AC sums' pad segment (row C) is never read.
+    s_shapes["ac_sum"], s_shapes["acw_sum"] = (C, 12, 2), (C, 12)
+    for sh, (flat, ce, flat2, hist) in zip(shards, outs):
+        a, b = sh["cells"]
+        Cs, (ta, tb), pos = b - a, sh["triples"], sh["emit_pos"]
+        Ts, Es = max(1, tb - ta), max(1, len(pos))
+        for f, v in zip(TRACKER_DEMOD, br._unpack(
+                flat.cpu().numpy(), br.demod_shapes(Cs, Q, K))):
+            place(f, slice(a, b), v, d_shapes[f])
+        place("ce", slice(a, b), ce.cpu().numpy(), (C,) + tuple(ce.shape[1:]))
+        place("td_hist", slice(a * P, b * P), hist.cpu().numpy(),
+              (C * P,) + tuple(hist.shape[1:]))
+        s = dict(zip(TRACKER_STATS, br._unpack(
+            flat2.cpu().numpy(), br.stats_shapes(Ts, Es, Cs, P))))
+        for f in TRACKER_EXACT:
+            place(f, slice(ta, tb), s[f][:tb - ta], s_shapes[f])
+        for f in ("ce_filt", "scal"):
+            place(f, pos, s[f][:len(pos)], s_shapes[f])
+        for f in ("ac_sum", "acw_sum"):
+            place(f, slice(a, b), s[f][:Cs], s_shapes[f])
+        place("carry_out", slice(a, b), s["carry_out"], s_shapes["carry_out"],
+              sh["carry_owned"][..., None, None])
+        place("td_xc", slice(a * P, b * P), s["td_xc"], s_shapes["td_xc"],
+              sh["td_owned"][:, None, None])
+    return got, mask
+
+
+def check_tracker_cells_sharded(n_devices: int, cells: int = None,
+                                devices=None, verbose: bool = False,
+                                cycle_ms: float = 20.0) -> dict:
+    """Run one REAL engine cycle's demod and stats programs with the cell
+    axis split over ``n_devices`` shards (the first CUDA cards, or
+    ``devices``, which may repeat) and hold them to the one-device run on
+    the first device. The cycle's arguments are harvested from a live
+    engine run of ``cells`` replicas (default 2 per shard) fed
+    ``cycle_ms`` of signal each (:func:`tracker_cycle`); shards may differ
+    in size by one cell (:func:`split_tracker_cycle`). The results are
+    compared unpacked, field by field, each shard's rows at their global
+    rows: the demod outputs, the raw CE rows, the new ac_td history and
+    the FOE/TOE lanes exact; the diagnostic lanes (filtered CE, scalars,
+    AC sums, carry rows, ac_td correlations) within rtol 2e-2 and atol
+    2e-3 with >= 99% of the stats payload exact (the JAX check's bound).
+    Entries that the engine fills with a placeholder (a carry slot or an
+    ac_td row without data) are not compared: the host never reads them.
+    Returns {"cells", "shards" (sizes), "triples", "launches" (the split
+    run's kernel launches), "fields" ({field: (compared, exact, max abs
+    err)}), "bit_equal"}; raises AssertionError on a failed check."""
+    import lte_cell_scanner_tpu_torch.tracker.batch_runtime as br
+    from lte_cell_scanner_tpu_torch.kernels import LAUNCHES
+    from lte_cell_scanner_tpu_torch.parallel.fc_sweep import (CapMesh,
+                                                              make_cap_mesh)
+
+    devs = (make_cap_mesh(n_devices) if devices is None
+            else CapMesh(devices)).devices
+    if len(devs) != n_devices:
+        raise ValueError(f"{len(devs)} devices for {n_devices} shards")
+    cells = 2 * n_devices if cells is None else cells
+    da, sa = tracker_cycle(cells, devs[0], cycle_ms)
+    C, Q, K = da[10].shape[0], da[10].shape[1], da[11].shape[1]
+    T, E, P = sa[2].shape[0], sa[5].shape[0], sa[0].shape[2]
+
+    flat, ce = br._demod_stream(*da)
+    flat2, hist = br._stats(ce, *sa[1:])
+    want = dict(zip(TRACKER_DEMOD, br._unpack(flat.cpu().numpy(),
+                                              br.demod_shapes(C, Q, K))))
+    want.update(zip(TRACKER_STATS, br._unpack(
+        flat2.cpu().numpy(), br.stats_shapes(T, E, C, P))))
+    want.update(ce=ce.cpu().numpy(), td_hist=hist.cpu().numpy(),
+                ac_sum=want["ac_sum"][:C], acw_sum=want["acw_sum"][:C])
+
+    shards = split_tracker_cycle(da, sa, devs)
+    before = dict(LAUNCHES)
+    outs = run_tracker_shards(shards)
+    launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    got, mask = _merge_tracker_shards(shards, outs, C, P, Q, K, T, E)
+
+    fields = {}
+    for f, m in mask.items():
+        if f not in ("carry_out", "td_xc") and not m.all():
+            raise AssertionError(f"{f}: the shards leave entries unfilled")
+        g, w = got[f][m], want[f][m]
+        same = (g == w) | (np.isnan(g) & np.isnan(w))
+        err = np.abs(g - w)
+        fields[f] = (int(m.sum()), int(same.sum()),
+                     float(np.nanmax(err, initial=0.0)))
+    for f, (n, n_eq, err) in fields.items():
+        if f in TRACKER_STATS and f not in TRACKER_EXACT:
+            np.testing.assert_allclose(got[f][mask[f]], want[f][mask[f]],
+                                       rtol=2e-2, atol=2e-3, equal_nan=True,
+                                       err_msg=f)
+        elif n_eq != n:
+            raise AssertionError(f"{f}: {n - n_eq} of {n} entries differ "
+                                 f"(max abs err {err:.3e}), want bit-equal")
+    n_st = sum(fields[f][0] for f in TRACKER_STATS)
+    exact = sum(fields[f][1] for f in TRACKER_STATS) / n_st
+    if exact < 0.99:
+        raise AssertionError(f"stats payload exact fraction {exact:.4f}")
+    sizes = [sh["cells"][1] - sh["cells"][0] for sh in shards]
+    bit_equal = all(n == n_eq for n, n_eq, _ in fields.values())
+    if verbose:
+        print(f"tracker cells split OK: {C} cells x {cycle_ms:g} ms in "
+              f"shards of {sizes} on {[str(d) for d in devs]}, {T} triples; "
+              f"demod, CE rows, ac_td history and FOE/TOE bit-equal; stats "
+              f"payload {100 * exact:.3f}% exact (every field bit-equal: "
+              f"{bit_equal})")
+    return {"cells": C, "shards": sizes, "triples": int(T),
+            "launches": launches, "fields": fields, "bit_equal": bit_equal}
+
+
 def dryrun_multichip(n_devices: int, devices=None,
                      n_cap: int = 153600) -> dict:
     """The sharded scan at PRODUCTION shape (by default the 153,600-sample
@@ -226,8 +530,9 @@ def dryrun_multichip(n_devices: int, devices=None,
     padded to a multiple of n_hyp)
     on an n_devices (seq, hyp) mesh, held to the unsharded scan (float64
     on CPU shards at 1e-12, float32 on CUDA shards at SCAN_RTOL: see the
-    module docstring); then the cap-axis sweep on n_devices shards and
-    :func:`check_pipelined_sweep_multidevice`. ``devices``: the shards'
+    module docstring); then the cap-axis sweep on n_devices shards,
+    :func:`check_pipelined_sweep_multidevice` and
+    :func:`check_tracker_cells_sharded`. ``devices``: the shards'
     devices (default: the first CUDA cards); they may repeat. Returns a
     summary dict; raises AssertionError on a failed check."""
     from lte_cell_scanner_tpu_torch.parallel.fc_sweep import (
@@ -266,13 +571,16 @@ def dryrun_multichip(n_devices: int, devices=None,
         [[(c.n_id_2, c.ind, c.freq) for c in p] for p in one], \
         "cap-axis sweep: peaks differ from one shard's"
     pipe = check_pipelined_sweep_multidevice(n_devices, devices=devs)
+    trk = check_tracker_cells_sharded(n_devices, devices=devs)
     res = {"seq": n_seq, "hyp": n_hyp, "n_f": n_f, "scan_err": err,
-           "peak": (int(pss), int(lag)), "pipelined": pipe}
+           "peak": (int(pss), int(lag)), "pipelined": pipe, "tracker": trk}
     print(f"dryrun_multichip OK: mesh seq={n_seq} x hyp={n_hyp} on "
           f"{[str(d) for d in devs]} at {n_cap}x{n_f} ("
           + ("float64, 1e-12 table parity" if on_cpu else
              f"float32, {err:.3e} x max of the unsharded K1 scan")
           + f"), peak at pss={pss} lag={lag}; cap={n_devices} sweep equal "
           f"to one shard's; pipelined sweep {pipe['cells']} cells equal to "
-          f"one shard's (bit-equal: {pipe['bit_equal']})")
+          f"one shard's (bit-equal: {pipe['bit_equal']}); tracker cycle "
+          f"({trk['cells']} cells in shards of {trk['shards']}) equal to "
+          f"one device's (bit-equal: {trk['bit_equal']})")
     return res

@@ -187,18 +187,36 @@ def _mat(ce, m):
     return torch.stack([ce[..., 0] @ m.T, ce[..., 1] @ m.T], dim=-1)
 
 
+def _neighbours(x):
+    """x[t-1] and x[t+1] along the subcarrier axis of (..., n, 2), zero
+    beyond the band's edges."""
+    z = torch.zeros_like(x[..., :1, :])
+    return (torch.cat([z, x[..., :-1, :]], dim=-2),
+            torch.cat([x[..., 1:, :], z], dim=-2))
+
+
 def filter_ce_batch(ce_prev, ce_curr, ce_next, prev_lower):
     """3-symbol staggered-comb filter + bias-corrected powers.
 
     ce_* (..., 12, 2); prev_lower (...,) bool — True when the previous
     RS symbol's shift is below the current one. Returns
     (ce_filt (...,12,2), np_curr, tp_curr, sp_curr, sp_raw).
+
+    The band sums of :func:`_filter_mats` (curr over {t-1, t, t+1}, lohi
+    over {t, t+1}, hilo over {t-1, t}) are taken as neighbour additions in
+    that order, not as matrix products: each row's value then does not
+    depend on how many rows a call holds (a GEMM kernel chosen by the row
+    count may sum in another order), so a cycle split over devices gives
+    the unsplit cycle's bits.
     """
-    curr, lohi, hilo, n_curr, n_lohi, n_hilo = on_device(
-        _filter_mats, ce_curr.device)
+    _, _, _, n_curr, n_lohi, n_hilo = on_device(_filter_mats,
+                                                ce_curr.device)
     adj = ce_prev + ce_next
-    tot_lo = _mat(ce_curr, curr) + _mat(adj, lohi)
-    tot_hi = _mat(ce_curr, curr) + _mat(adj, hilo)
+    c_lo, c_hi = _neighbours(ce_curr)
+    a_lo, a_hi = _neighbours(adj)
+    curr = c_lo + ce_curr + c_hi
+    tot_lo = curr + (adj + a_hi)
+    tot_hi = curr + (a_lo + adj)
     cnt_lo = n_curr + 2 * n_lohi
     cnt_hi = n_curr + 2 * n_hilo
     pl = prev_lower[..., None, None]

@@ -33,7 +33,7 @@ fixed point (_dispatch_demod, _dequant_plan), and each program's results
 come home in one float16 buffer with the feedback-critical lanes packed
 losslessly (_pack). Its scope notes hold here too: interpolated channel
 estimates are evaluated only at the symbols that consume them (PBCH, sync
-and CRS measurement symbols); the TOE blend wraps relative to the
+and CRS measurement symbols, and a ``ce_observer``'s); the TOE blend wraps relative to the
 cycle-start frame timing; ac_fd/ac_td update once per cycle; a PSS/SSS
 pair split across a cycle boundary skips its measurement.
 """
@@ -188,6 +188,13 @@ class BatchTrackerEngine:
         self._stream_end = 0
         self._dev_tables = None            # device RS/sync tables
         self._dev_key = None
+        # Optional per-symbol CE tap: a (filter(slot, sym),
+        # callback(n_id_cell, slot, sym, ce (n_ports, 72), sp (n_ports,),
+        # np (n_ports,))) pair. The engine interpolates CE only at the
+        # symbols something consumes; the filter's symbols become
+        # consumers (the same bracketing interpolation) and reach the
+        # callback in order once finalized.
+        self.ce_observer = None
         # ac_td rolling raw-CE history: DEVICE-RESIDENT engine state
         # (Cp, 72, 12, 2) f32 — updated by every stats program, never
         # fetched; counts gate the first IIR assignment at 72 rows
@@ -449,9 +456,8 @@ class BatchTrackerEngine:
         the sync measurements. Runs AFTER the stats dispatch so this
         round trip overlaps device compute; everything filled here is
         only consumed from _stats_finish/_finalize onward."""
-        C, Q, K = cyc["C"], cyc["Q"], cyc["K"]
-        kept, s_tp, s_sp, s_np, s_npb, s_ce = _unpack(cyc["flat"].numpy(), [
-            (C, Q, 72, 2), (C, K), (C, K), (C, K), (C, K), (C, 62, 2)])
+        kept, s_tp, s_sp, s_np, s_npb, s_ce = _unpack(
+            cyc["flat"].numpy(), demod_shapes(cyc["C"], cyc["Q"], cyc["K"]))
         kept_c = {}
         for ctx, pos, ci, qi in cyc["patch"]:
             if ci not in kept_c:
@@ -488,6 +494,12 @@ class BatchTrackerEngine:
                 interesting[int(si)] = qi
             for si in info["sync_meta"]:
                 interesting.setdefault(int(si), None)
+            obs = self.ce_observer
+            if obs is not None:
+                for si in range(info["n"]):
+                    if obs[0](int(info["slots"][si]),
+                              int(info["syms"][si])):
+                        interesting.setdefault(si, None)
             for si in sorted(interesting):
                 if interesting[si] is not None:
                     cyc["patch"].append((ctx, len(ctx.pending), ci,
@@ -643,12 +655,8 @@ class BatchTrackerEngine:
         total, segments = sp["total"], sp["segments"]
         emit_idx = sp["emit_idx"]
         (foe_ang, foe_np, delay, delay_np, ce_filt_e, scal_e,
-         ac_sum, acw_sum, carry_out, td_xc) = _unpack(sp["flat"].numpy(), [
-             ("f32", (T,)), ("f32", (T,)),
-             ("f32", (T,)), ("f32", (T,)),
-             (E, 12, 2), (E, 4),
-             ("f32", (C + 1, 12, 2)), ("f32", (C + 1, 12)),
-             (C, P, 2, 12, 2), (C * P, 72, 2)])
+         ac_sum, acw_sum, carry_out, td_xc) = _unpack(
+             sp["flat"].numpy(), stats_shapes(T, E, C, P))
         td_ok = sp["td_ok"]
 
         # Store next cycle's carry values (host side, robust to cell-set
@@ -831,9 +839,19 @@ class BatchTrackerEngine:
                 continue
             n_ports = cell.n_ports
             horizon = min(ctx.horizon[:n_ports]) if n_ports else -1
+            obs = self.ce_observer
             while ctx.pending and ctx.pending[0][0] < horizon:
                 seq, slot_num, sym_num, syms = ctx.pending.popleft()
                 pt = ctx.interp_points.pop(seq, None)
+                if obs is not None and pt is not None \
+                        and len(pt) == n_ports \
+                        and obs[0](slot_num, sym_num):
+                    obs[1](cell.n_id_cell, slot_num, sym_num,
+                           np.stack([pt[p][0] for p in range(n_ports)]),
+                           np.array([pt[p][1]["sp"]
+                                     for p in range(n_ports)]),
+                           np.array([pt[p][1]["np_"]
+                                     for p in range(n_ports)]))
                 if slot_num in (0, 10):
                     sv = ctx.sync_vals.pop(seq, None)
                     if sv is not None:
@@ -979,6 +997,24 @@ def _unpack(flat16: np.ndarray, shapes):
     return out
 
 
+def demod_shapes(C: int, Q: int, K: int) -> list:
+    """The :func:`_unpack` shapes of the demod program's packed results
+    (C cells, Q PBCH symbols, K sync pairs each): the PBCH symbols, the
+    sync TP, SP, NP and blank-NP, the latest pair's smoothed sync CE."""
+    return [(C, Q, 72, 2), (C, K), (C, K), (C, K), (C, K), (C, 62, 2)]
+
+
+def stats_shapes(T: int, E: int, C: int, P: int) -> list:
+    """The :func:`_unpack` shapes of the stats program's packed results
+    (T triples, E emit rows, C cells of P ports): the FOE angle and NP,
+    the TOE delay and NP (lossless), the emit rows' filtered CE and
+    scalars, the per-cell AC sums and weights (lossless; row C is the pad
+    segment), the carry rows and the ac_td correlations."""
+    return [("f32", (T,)), ("f32", (T,)), ("f32", (T,)), ("f32", (T,)),
+            (E, 12, 2), (E, 4), ("f32", (C + 1, 12, 2)),
+            ("f32", (C + 1, 12)), (C, P, 2, 12, 2), (C * P, 72, 2)]
+
+
 def _dequant_plan(bpo, late):
     """The demod plan's link-quantized lanes back to f32: the wrapped bulk
     phase as i16 turn fractions (2pi/65536 ~ 1e-4 rad, exact modular
@@ -1034,6 +1070,17 @@ def _demod_tail(syms, rs_conj_tab, shift_tab, rs_idx, rs_slot, rs_sym,
     return flat, ce
 
 
+def _segment_sum(x, seg_id, n_seg: int):
+    """Sums of x's rows per segment (ids ``seg_id`` in [0, n_seg), in any
+    order), each segment's rows added in their order, as index_add_ does
+    on the CPU. On CUDA index_add_ adds with atomics in no fixed order;
+    this sum's bits depend only on the segment's rows, whatever the device
+    or the other segments of the call (a cycle split over devices)."""
+    order = torch.sort(seg_id, stable=True).indices
+    lengths = torch.bincount(seg_id, minlength=n_seg)
+    return torch.segment_reduce(x[order], "sum", lengths=lengths, axis=0)
+
+
 def _stats(ce_dev, carry_vals, tri, pl, seg_id, emit_idx, carry_idx,
            td_rows, td_new, td0_rows, td0_new, td0_sp, td_hist, n_seg):
     """Stats program: CE filter + FOE/TOE/AC statistics of every RS
@@ -1076,8 +1123,7 @@ def _stats(ce_dev, carry_vals, tri, pl, seg_id, emit_idx, carry_idx,
     td_xc = torch.mean(prod, dim=2) / torch.clamp(
         sp_c[td0_sp], min=1e-30)[:, None, None]          # (Cp, 72, 2)
 
-    # AC aggregation per cell (diagnostics; weight-summed on the device
-    # with index_add_, whose float sums run in no fixed order on CUDA).
+    # AC aggregation per cell (diagnostics; weight-summed on the device).
     # Rows with degenerate power (padding, all-zero windows) produce
     # non-finite ac values — zero-weight them instead of poisoning the
     # per-cell sum with NaN.
@@ -1085,11 +1131,8 @@ def _stats(ce_dev, carry_vals, tri, pl, seg_id, emit_idx, carry_idx,
     finite = torch.isfinite(ac).all(dim=-1) & torch.isfinite(w)
     w = torch.where(finite, w, 0.0)
     ac = torch.where(finite[..., None], ac, 0.0)
-    ac_sum = torch.zeros((n_seg, 12, 2), dtype=ac.dtype,
-                         device=ac.device).index_add_(0, seg_id,
-                                                      ac * w[..., None])
-    acw_sum = torch.zeros((n_seg, 12), dtype=w.dtype,
-                          device=w.device).index_add_(0, seg_id, w)
+    ac_sum = _segment_sum(ac * w[..., None], seg_id, n_seg)
+    acw_sum = _segment_sum(w, seg_id, n_seg)
 
     # Emit rows (brackets the host interpolation needs) + raw carry rows.
     scal = torch.stack([tp_c, sp_c, sp_raw, np_c], dim=-1)  # (T, 4)

@@ -22,10 +22,13 @@ from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 
-from lte_cell_scanner_tpu_torch.constants import FRAME, FS_LTE
+from lte_cell_scanner_tpu_torch.constants import (CELL_DROP_THRESHOLD, FRAME,
+                                                  FS_LTE)
 from lte_cell_scanner_tpu_torch.io.raw import bytes_to_iq, iq_to_bytes
 from lte_cell_scanner_tpu_torch.tracker.batch_runtime import (
     BatchTrackerEngine)
+from lte_cell_scanner_tpu_torch.tracker.native_feeder import (
+    NativeSampleFeeder)
 from lte_cell_scanner_tpu_torch.tracker.producer import SampleFeeder
 from lte_cell_scanner_tpu_torch.tracker.searcher import (kalibrate,
                                                          searcher_pass)
@@ -34,23 +37,41 @@ from lte_cell_scanner_tpu_torch.tracker.state import GlobalState, TrackedCell
 BLOCK_SIZE = 10000
 
 
-def playback_source(capbuf: np.ndarray) -> Iterator[np.ndarray]:
-    """Yield uint8 IQ blocks of a recorded/synthesized capture, repeating
-    it forever.
+def playback_source(capbuf: np.ndarray, repeat: bool = True,
+                    noise_power: Optional[float] = None,
+                    seed: int = 0) -> Iterator[np.ndarray]:
+    """Yield uint8 IQ blocks of BLOCK_SIZE samples from a recorded or
+    synthesized capture.
 
-    Mirrors the reference's file playback: re-quantization to uint8
-    through the same path as live USB data.
+    Mirrors the reference's file playback: optional calibrated AWGN of
+    ``noise_power`` (drawn from ``np.random.default_rng(seed)``), then
+    re-quantization to uint8 through the same path as live USB data.
+    With ``repeat`` the capture loops forever; without, the source ends
+    after the capture's last (possibly short) block.
     """
-    sig = np.asarray(capbuf)
+    rng = np.random.default_rng(seed)
     pos = 0
+    sig = np.asarray(capbuf)
     while True:
         block = sig[pos:pos + BLOCK_SIZE]
         if len(block) < BLOCK_SIZE:
+            if not repeat:
+                if len(block):
+                    yield _quantize(block, noise_power, rng)
+                return
             block = np.concatenate([block, sig[:BLOCK_SIZE - len(block)]])
             pos = (pos + BLOCK_SIZE) % len(sig)
         else:
             pos += BLOCK_SIZE
-        yield iq_to_bytes(block)
+        yield _quantize(block, noise_power, rng)
+
+
+def _quantize(block, noise_power, rng):
+    if noise_power is not None:
+        block = block + (rng.standard_normal(len(block))
+                         + 1j * rng.standard_normal(len(block))) \
+            * np.sqrt(noise_power / 2)
+    return iq_to_bytes(block)
 
 
 class LTETracker:
@@ -61,22 +82,37 @@ class LTETracker:
     PyTorch versions. ``engine_every`` is the engine's cadence in input
     blocks: larger values amortize each cycle's fixed cost at the price
     of feedback-loop lag (20 ~ one cycle per 104 ms of signal).
+    ``feeder="native"`` runs the sample feeder in C++
+    (tracker/native_feeder.py) on the raw bytes. ``drop_threshold`` is
+    every acquired cell's (unset: CELL_DROP_THRESHOLD). ``ce_observer`` is
+    the engine's optional per-symbol CE tap (BatchTrackerEngine).
     """
 
     def __init__(self, fc_requested: float,
                  fc_programmed: Optional[float] = None,
                  fs_programmed: float = 1.92e6,
                  initial_freq_offset: float = 0.0, engine_every: int = 1,
+                 feeder: str = "python",
                  on_event: Optional[Callable[[str, dict], None]] = None,
-                 device=None):
+                 drop_threshold: Optional[float] = None,
+                 ce_observer: Optional[tuple] = None, device=None):
         self.state = GlobalState(
             fc_requested=fc_requested,
             fc_programmed=fc_programmed if fc_programmed else fc_requested,
             fs_programmed=fs_programmed,
             frequency_offset=initial_freq_offset)
         self.engine = BatchTrackerEngine(self.state, device=device)
+        self.engine.ce_observer = ce_observer
         self.device = self.engine.device
-        self.feeder = SampleFeeder(self.state)
+        if feeder == "native":
+            self.feeder = NativeSampleFeeder(self.state)
+        elif feeder == "python":
+            self.feeder = SampleFeeder(self.state)
+        else:
+            raise ValueError(f"feeder must be 'python' or 'native', not "
+                             f"{feeder!r}")
+        self.drop_threshold = (drop_threshold if drop_threshold is not None
+                               else CELL_DROP_THRESHOLD)
         self.cells: List[TrackedCell] = []
         self.serial_num: Dict[int, int] = {}
         self.on_event = on_event or (lambda kind, info: None)
@@ -128,7 +164,10 @@ class LTETracker:
                 self.cells.remove(cell)
                 self.on_event("cell_dropped", {"n_id_cell": cell.n_id_cell})
 
-        self.feeder.feed(bytes_to_iq(raw_block), self.cells)
+        if isinstance(self.feeder, NativeSampleFeeder):
+            self.feeder.feed_bytes(raw_block, self.cells)
+        else:
+            self.feeder.feed(bytes_to_iq(raw_block), self.cells)
         if self.n_blocks % self.engine_every == 0:
             self.engine.process_all(self.cells)
 
@@ -160,7 +199,8 @@ class LTETracker:
                 cp_type=cell_res.cp_type, n_rb_dl=cell_res.n_rb_dl,
                 phich_duration=cell_res.phich_duration,
                 phich_resource=cell_res.phich_resource,
-                frame_timing=float(frame_timing), serial_num=serial)
+                frame_timing=float(frame_timing), serial_num=serial,
+                drop_threshold=self.drop_threshold)
             self.cells.append(cell)
             self.on_event("cell_acquired", {
                 "n_id_cell": n_id, "n_ports": cell.n_ports,
@@ -176,6 +216,7 @@ class LTETracker:
             "searcher_cycle_time": self.state.searcher_cycle_time,
             "raw_seconds_dropped": self.state.raw_seconds_dropped,
             "cell_seconds_dropped": self.state.cell_seconds_dropped,
+            "debug_g": self.state.debug_g,
             "cells": [{
                 "n_id_cell": c.n_id_cell,
                 "n_ports": c.n_ports,

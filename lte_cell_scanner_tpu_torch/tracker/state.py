@@ -46,6 +46,11 @@ class GlobalState:
     raw_seconds_dropped: int = 0
     cell_seconds_dropped: int = 0
     searcher_cycle_time: float = float("nan")
+    # Nine free-form experiment knobs, settable from the CLI
+    # (--g1..--g9) and readable anywhere through the shared state —
+    # the reference's hidden scratch debug globals
+    # (src/LTE-Tracker.cpp:52-60,158-166).
+    debug_g: tuple = (0.0,) * 9
 
     def k_factor(self) -> float:
         return (self.fc_requested - self.frequency_offset) / self.fc_programmed

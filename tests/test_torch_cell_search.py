@@ -171,7 +171,8 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "lte_cell_scanner_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
-    assert {"runtime.py", "batch_runtime.py", "cli.py"} <= {
+    assert {"runtime.py", "batch_runtime.py", "cli.py", "display.py",
+            "curses_display.py", "native_feeder.py"} <= {
         p.name for p in files if p.parent.name == "tracker"}
     assert {"bench_scan.py", "bench_decode.py", "bench_viterbi.py",
             "bench_tracker.py", "mc_search.py", "rtl_sdr_check.py",

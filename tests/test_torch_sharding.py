@@ -16,7 +16,11 @@ Tolerances:
   the one-shard wideband sweep (its channelizer convolves another count
   of carriers per shard);
 - the sharded scan in float64: every table within atol 1e-12 of the JAX
-  package's float64 ``xcorr_pss(..., backend="numpy")``, frq exact.
+  package's float64 ``xcorr_pss(..., backend="numpy")``, frq exact;
+- the tracker engine cycle with its cell axis split over CPU shards
+  (``check_tracker_cells_sharded``, whose own bound is the JAX check's):
+  every field of both programs bit-equal to the one-device run, which
+  held on the CPU.
 """
 
 import numpy as np
@@ -222,12 +226,42 @@ def test_pipelined_sweep_multidevice_cpu(n):
     assert res["cells"] >= 8 and res["bit_equal"]
 
 
+@pytest.mark.parametrize("n,sizes", [(2, [8, 8]), (3, [6, 5, 5])])
+def test_tracker_cells_split(n, sizes):
+    """One real engine cycle of 16 cells split over 2 and (unevenly) 3
+    CPU shards: both programs' outputs, unpacked field by field, equal the
+    one-device run's bit for bit."""
+    res = mc.check_tracker_cells_sharded(n, cells=16, devices=["cpu"] * n)
+    assert res["cells"] == 16 and res["shards"] == sizes
+    assert res["triples"] > 16 and res["bit_equal"]
+    assert {f for f, (cnt, eq, _) in res["fields"].items()
+            if cnt and cnt == eq} == set(mc.TRACKER_DEMOD) | set(
+                mc.TRACKER_STATS) | {"ce", "td_hist"}
+    assert not any(res["launches"].values())      # plain versions on CPU
+
+
+def test_tracker_split_rebases_rows():
+    """A shard's row indices: carry rows of its cells, then its CE rows;
+    another shard's row is refused unless it is the placeholder 0."""
+    C, R, P = 4, 3, 2
+    n_car = C * P * 2
+    g = np.array([0, 2 * P * 2 + 1, n_car + 2 * R * P + 5,
+                  n_car + 3 * R * P])
+    local, owned = mc._rebase_rows(g, 2, 4, C, R, P)
+    assert owned.tolist() == [False, True, True, True]
+    assert local.tolist() == [0, 1, 2 * P * 2 + 5, 2 * P * 2 + R * P]
+    with pytest.raises(AssertionError, match="crosses shards"):
+        mc._rebase_rows(np.array([n_car + 1]), 2, 4, C, R, P)
+
+
 def test_dryrun_multichip_cpu():
     # Half the production capture, to keep the CPU run light; the float64
     # scan at 153,600 x 32 is held to JAX by test_float64_scan_matches_jax.
     res = mc.dryrun_multichip(4, devices=["cpu"] * 4, n_cap=76800)
     assert (res["seq"], res["hyp"], res["n_f"]) == (2, 2, 32)
     assert res["peak"][0] == 1 and res["pipelined"]["bit_equal"]
+    assert res["tracker"]["shards"] == [2, 2, 2, 2]
+    assert res["tracker"]["bit_equal"]
 
 
 def test_wideband_sweep_shards():

@@ -64,14 +64,28 @@ CASES = {
 }
 
 
+def _tapped(slot, sym):
+    """The CE tap's symbols: RS-bearing and plain symbols of slots that
+    no other consumer reads (not sync, not PBCH), so that the tap adds
+    interpolation consumers to the engine."""
+    return slot in (3, 13) and sym in (0, 2, 4)
+
+
 @pytest.fixture(scope="module", params=sorted(CASES))
 def trackers(request):
     """The port's tracker on the CPU and the JAX batch engine, both fed
-    the same blocks of a simulated cell; returns (port, ref, cell id)."""
+    the same blocks of a simulated cell, both with the same CE tap
+    (``ce_observer``) recording into ``.taps``; returns (port, ref, cell
+    id)."""
     sig_kw, fo, blocks, n_id = CASES[request.param]
     sig = synthetic_capture(**sig_kw)
-    port = LTETracker(739e6, initial_freq_offset=fo, device="cpu")
-    ref = JaxTracker(739e6, initial_freq_offset=fo, batch=True)
+    taps = [], []
+    port = LTETracker(739e6, initial_freq_offset=fo, device="cpu",
+                      ce_observer=(_tapped,
+                                   lambda *a: taps[0].append(a)))
+    ref = JaxTracker(739e6, initial_freq_offset=fo, batch=True,
+                     ce_observer=(_tapped, lambda *a: taps[1].append(a)))
+    port.taps, ref.taps = taps
     port.run(playback_source(sig), max_blocks=blocks)
     ref.run(playback_source(sig), max_blocks=blocks)
     return port, ref, n_id
@@ -255,6 +269,24 @@ def test_tracker_measurements_match_jax(trackers):
         a, b = getattr(p, name), getattr(r, name)
         assert a is not None and b is not None, name
         assert np.abs(a - b).max() < 1e-3 * np.abs(b).max(), name
+
+
+def test_ce_tap_matches_jax(trackers):
+    """The CE tap sees the same symbols, in order, as the JAX engine's,
+    with the same interpolated CE, SP and NP (interpolated from rows that
+    crossed the float16 fetch: within one float16 step)."""
+    port, ref, n_id = trackers
+    assert len(port.taps) > 20
+    assert [t[:3] for t in port.taps] == [t[:3] for t in ref.taps]
+    assert {t[0] for t in port.taps} == {n_id}
+    assert {(t[1], t[2]) for t in port.taps} == {
+        (s, y) for s in (3, 13) for y in (0, 2, 4)}
+    for i in (3, 4, 5):
+        got = np.stack([t[i] for t in port.taps])
+        want = np.stack([t[i] for t in ref.taps])
+        _close(got.real, want.real, **F16)
+        _close(got.imag, want.imag, **F16)
+    assert port.taps[0][3].shape == (port.cells[0].n_ports, 72)
 
 
 def test_td_align_matches_jax():
