@@ -4,7 +4,7 @@ NVIDIA card.
 
     python3 chip_smoke.py
 
-Eight paths of the port run on the card: the cell search on one capture
+Nine paths of the port run on the card: the cell search on one capture
 (search/cell_search.py), the batched tracker engine (tracker/,
 LTETracker), the tools (tools/: bench_scan, bench_viterbi, bench_decode,
 bench_demod, bench_tracker, mc_search, bench_wideband), the batched fc
@@ -13,8 +13,11 @@ sweep (parallel/fc_sweep.py, search/pipeline.py, the CLI's
 search/wideband.py, the CLI's --wideband), the multi-device paths
 (parallel/: the sweeps' cap axis, the (seq, hyp)-sharded scan, the
 torch.distributed collective path, the tracker cycle's cell axis), the
-tracker CLI's file playback (tracker/cli.py --load) and the tracker with
-the C++ sample feeder and the CE tap (tracker/native_feeder.py).
+tracker CLI's file playback (tracker/cli.py --load), the tracker with
+the C++ sample feeder and the CE tap (tracker/native_feeder.py), and the
+float64 host path (cell_search(backend="numpy"), the host CellTracker
+behind LTETracker(batch=False), the engine on sample-carrying PDUs and the
+full TFG grid of ops/mib_torch.py::extract_tfg_batch).
 Phases; the script exits non-zero if any fails:
 
 1. Print the card (nvidia-smi name and power limit), build the CUDA
@@ -119,8 +122,27 @@ Phases; the script exits non-zero if any fails:
    same blocks and cell states), both with a CE tap, the Python
    run's taps against a CPU run's (the same symbols, CE within one
    float16 step); the feeders' host ms per block at 1 and 96 cells.
+6. The host path, with the launch counts set to 0 just before the drive
+   and read just after: cell_search(backend="numpy") on both captures
+   with the 31-hypothesis grid in hex and in 2stage (the card's cells and
+   MIB fields, freq_superfine within 0.5 Hz); extract_tfg_batch over 64
+   replicas of each capture's synced candidate (K4's MIB mode once per
+   CP group, 54,656 and 46,848 windows: the full 854/732-row grid, held
+   to the float64 host extract_tfg per cell, timestamps within 1e-9 and
+   the grid within 2e-3 x max); LTETracker(batch=False,
+   backend="torch") on 400 blocks of the tracker's cell (its searcher
+   launches K1, K4 and K5; cell 271 at health 1.0 with more than 10 MIB
+   decodes; the same events, FO and frame timing as a device="cpu" run
+   and as backend="numpy"); the engine on sample-carrying PDUs from the
+   Python and the C++ feeder over 300 blocks (K4's stream mode over the
+   windows laid end to end; the same cells as phase 5's descriptor-mode
+   run, its CE taps within one float16 step). Then K4 at both new shapes
+   against its plain version, and the times: the float64 chain per
+   capture against the card's search (host clock, median of 5),
+   extract_tfg_batch at B = 64 and its K4 launch against the byte bound
+   (CUDA events), the host tracker's ms per block against the engine's.
 
-Each kernel's ``launches`` in the kernels line is the sum over the eight
+Each kernel's ``launches`` in the kernels line is the sum over the nine
 paths' runs, ``launches_by_path`` the split. The line before the last is
 {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
@@ -215,6 +237,15 @@ TAP_BLOCKS, FEEDER_BLOCKS, FEEDER_WARM = 300, 24, 3
 # The CE tap's tolerance: one float16 step (rtol 1e-3 + atol 1e-3 x max),
 # that of tests/test_torch_tracker_engine.py::test_ce_tap_matches_jax.
 CE_RTOL = 1e-3
+
+# The host path (the float64 chain, the host CellTracker, the engine on
+# sample-carrying PDUs and the full TFG grid): HOST_TFG_B replicas per CP
+# group for extract_tfg_batch, the float64 search timed HOST_REPS times;
+# a noise-power tap between the engine's two PDU modes within
+# HOST_NP_RTOL (tests/test_torch_host_tracker.py).
+HOST_KERNELS = ("xcorr_fold", "fd_demod", "fd_demod_stream", "viterbi")
+HOST_TFG_B, HOST_REPS, HOST_NP_RTOL = 64, 5, 1e-2
+HOST_BLOCKS = 400          # the host tracker's runs, as the tracker path
 
 
 def tapped(slot: int, sym: int) -> bool:
@@ -1733,6 +1764,25 @@ def feeder_ms(n_cells: int) -> dict:
     return out
 
 
+def tap_errors(got, want, np_rtol=HOST_NP_RTOL) -> tuple:
+    """(the same (n_id, slot, sym) sequence of more than 20 taps, {name:
+    (max abs err, max |want|, within tolerance)}) of two runs' CE taps: CE
+    and SP within one float16 step (rtol CE_RTOL + CE_RTOL x max), NP
+    within rtol ``np_rtol`` + CE_RTOL x max (HOST_NP_RTOL between the
+    engine's two PDU modes, tests/test_torch_host_tracker.py)."""
+    same = [t[:3] for t in got] == [t[:3] for t in want] and len(got) > 20
+    errs = {}
+    if same:
+        for i, name, rtol in ((3, "CE", CE_RTOL), (4, "SP", CE_RTOL),
+                              (5, "NP", np_rtol)):
+            g = np.stack([t[i] for t in got])
+            w = np.stack([t[i] for t in want])
+            errs[name] = (float(np.abs(g - w).max()), float(np.abs(w).max()),
+                          bool((np.abs(g - w) <= rtol * np.abs(w)
+                                + CE_RTOL * np.abs(w).max()).all()))
+    return same, errs
+
+
 def native_path(sig) -> dict:
     """The sample feeders and the CE tap on the card: trackers with the
     Python and the C++ feeder, each with the CE tap, on TAP_BLOCKS blocks
@@ -1825,17 +1875,8 @@ def native_path(sig) -> dict:
     out["late"] = shadow["late"]
 
     cpu = run("python", "cpu")
-    seq_ok = [t[:3] for t in py[1]] == [t[:3] for t in cpu[1]]
-    errs = {}
-    if seq_ok and py[1]:
-        for i, name in ((3, "CE"), (4, "SP"), (5, "NP")):
-            g = np.stack([t[i] for t in py[1]])
-            w = np.stack([t[i] for t in cpu[1]])
-            errs[name] = (float(np.abs(g - w).max()),
-                          float(np.abs(w).max()),
-                          bool((np.abs(g - w) <= CE_RTOL * np.abs(w)
-                                + CE_RTOL * np.abs(w).max()).all()))
-    check(seq_ok and len(py[1]) > 20 and all(e[2] for e in errs.values()),
+    seq_ok, errs = tap_errors(py[1], cpu[1], np_rtol=CE_RTOL)
+    check(seq_ok and all(e[2] for e in errs.values()),
           f"CE tap on the card against the CPU run: {len(py[1])} / "
           f"{len(cpu[1])} taps, (n_id, slot, sym) equal: {seq_ok}; max abs "
           f"err (of max) " + ", ".join(f"{k} {e[0]:.3e} ({e[1]:.3e})"
@@ -1844,6 +1885,7 @@ def native_path(sig) -> dict:
           f"{py[0]['frequency_offset']:.4f}, CPU "
           f"{cpu[0]['frequency_offset']:.4f} Hz")
     out["ce_err"] = errs
+    out["py"] = py
     for n in (1, CAP_CELLS):
         t = feeder_ms(n)
         out[f"feeder_ms_{n}"] = t
@@ -1852,6 +1894,312 @@ def native_path(sig) -> dict:
               f"{FEEDER_BLOCKS}): python {t['python']:.3f}, native "
               f"{t['native']:.3f} ({t['python'] / t['native']:.1f}x); "
               f"{card_line()}", flush=True)
+    return out
+
+
+def host_path(caps, fset, found, sig, desc_run, e2e_ms, trk_s,
+              device="cuda") -> dict:
+    """The float64 host path and the engine's sample-carrying mode, with the
+    kernels' launch counts set to 0 just before the drive and read just
+    after (the comparisons with the plain versions and the timings come
+    after the read):
+
+    - cell_search(backend="numpy") on both captures with the 31-hypothesis
+      grid, in hex and in 2stage: the card's cells and MIB fields,
+      freq_superfine within 0.5 Hz;
+    - extract_tfg_batch on the card over HOST_TFG_B replicas of each
+      capture's synced candidate (K4's MIB mode once per CP group): the
+      full 854/732-row grid against the float64 host extract_tfg per cell
+      (timestamps within 1e-9, the grid within 2e-3 x max);
+    - LTETracker(batch=False, backend="torch") on 400 blocks of the
+      tracker's cell: the searcher launches K1, K4 and K5; cell 271 at
+      health 1.0 with more than 10 MIB decodes; the same events, FO and
+      frame timing as a device="cpu" run and as backend="numpy";
+    - the engine fed sample-carrying PDUs by the Python and then the C++
+      feeder over TAP_BLOCKS blocks: K4's stream mode launched, the same
+      cells as the descriptor-mode run ``desc_run`` (native_path's) and
+      its CE taps within one float16 step.
+    Then K4 at both new shapes against its plain version, and the times:
+    the float64 chain per capture (host clock, median of HOST_REPS)
+    against the card's ``e2e_ms``, extract_tfg_batch at B = HOST_TFG_B
+    (host clock) and its K4 launch (CUDA events) against the byte bound,
+    and the host tracker's ms per block against the engine's (``trk_s``
+    for 400 blocks, phase 3). ``device`` is the card's."""
+    import torch
+
+    from lte_cell_scanner_tpu_torch import kernels
+    from lte_cell_scanner_tpu_torch.ops import mib_torch
+    from lte_cell_scanner_tpu_torch.ops.fd_demod import (
+        fd_demod, fd_demod_plain, fd_demod_stream, fd_demod_stream_plain)
+    from lte_cell_scanner_tpu_torch.ops.peak_torch import (
+        peak_search_device, peaks_to_cells, r_th1_normalized)
+    from lte_cell_scanner_tpu_torch.ops.sync_torch import sss_foe_batch
+    from lte_cell_scanner_tpu_torch.ops.tfg import extract_tfg
+    from lte_cell_scanner_tpu_torch.ops.xcorr_torch import (scan_plan,
+                                                            xcorr_core)
+    from lte_cell_scanner_tpu_torch.search.cell_search import (cell_search,
+                                                               dedup)
+    from lte_cell_scanner_tpu_torch.tracker import batch_runtime as br
+    from lte_cell_scanner_tpu_torch.tracker.runtime import (LTETracker,
+                                                            playback_source)
+
+    dev = torch.device(device)
+    out, counts = {}, {}
+    cap_dev = {cp: torch.from_numpy(np.stack(
+        [c.real, c.imag], -1).astype(np.float32)).to(dev)
+        for cp, c in caps.items()}
+    # The synced candidates (their SSS/FOE on the card, before the count
+    # starts), HOST_TFG_B replicas each at slightly other timings and
+    # frequencies.
+    groups = {}
+    for cp, c in caps.items():
+        plan = scan_plan(len(c), fset, FC, FC, 1.92e6)
+        packed, single, _ = xcorr_core(cap_dev[cp].T.contiguous(), plan, 2)
+        peaks = peaks_to_cells(peak_search_device(
+            packed, single, r_th1_normalized(plan.n_comb_xc, 2),
+            2).cpu().numpy(), fset, FC, FC)
+        synced = [x for x in sss_foe_batch(peaks, cap_dev[cp], 3.0)
+                  if x.n_id_1 >= 0 and x.cp_type == cp]
+        check(bool(synced), f"host path: the {cp} CP capture yields a "
+              "synced candidate")
+        groups[cp] = [dataclasses.replace(
+            synced[0], frame_start=synced[0].frame_start + 0.37 * i,
+            freq_fine=synced[0].freq_fine + 3.0 * i)
+            for i in range(HOST_TFG_B)]
+    sizes, orig_fd = [], br.fd_demod_stream
+
+    def size_tap(*args):
+        sizes.append(args)
+        return orig_fd(*args)
+
+    def drive(trk, blocks):
+        t0 = time.perf_counter()
+        trk.run(playback_source(sig), max_blocks=blocks)
+        torch.cuda.synchronize()
+        st = trk.status()
+        st.pop("searcher_cycle_time")
+        return st, time.perf_counter() - t0
+
+    def events_of(backend, device, batch=False, feeder="python",
+                  descriptors=True):
+        ev, taps = [], []
+        trk = LTETracker(FC, initial_freq_offset=4000.0, backend=backend,
+                         batch=batch, feeder=feeder, device=device,
+                         on_event=lambda k, i: ev.append((k, i)),
+                         ce_observer=(tapped, lambda *a: taps.append(a)))
+        if batch:
+            trk.feeder.emit_descriptors = descriptors
+        st, secs = drive(trk, TAP_BLOCKS if batch else HOST_BLOCKS)
+        return dict(events=ev, status=st, taps=taps, s=secs)
+
+    # ---- the drive, with the launch counts.
+    t_drive = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    host_cells = {}
+    for cp, c in caps.items():
+        for interp in ("hex", "2stage"):
+            t0 = time.perf_counter()
+            host_cells[cp, interp] = dedup(cell_search(
+                c, FC, f_search_set=fset, backend="numpy", interp=interp))
+            out[f"search_{cp}_{interp}_s"] = time.perf_counter() - t0
+    tfg = {}
+    for cp, cells in groups.items():
+        before = dict(kernels.LAUNCHES)
+        tfg[cp] = mib_torch.extract_tfg_batch(cells, cap_dev[cp])
+        counts[f"tfg_{cp}"] = kernels.LAUNCHES["fd_demod"] \
+            - before["fd_demod"]
+    before = dict(kernels.LAUNCHES)
+    card = events_of("torch", device)
+    counts["host_torch"] = {k: kernels.LAUNCHES[k] - before[k]
+                            for k in kernels.KERNELS}
+    numpy_run = events_of("numpy", device)
+    before = dict(kernels.LAUNCHES)
+    br.fd_demod_stream = size_tap
+    try:
+        sample = {"python": events_of("torch", device, batch=True,
+                                      descriptors=False)}
+    finally:
+        br.fd_demod_stream = orig_fd
+    sample["native"] = events_of("torch", device, batch=True,
+                                 feeder="native", descriptors=False)
+    counts["sample"] = {k: kernels.LAUNCHES[k] - before[k]
+                        for k in kernels.KERNELS}
+    torch.cuda.synchronize()
+    out["launches"] = lc = dict(kernels.LAUNCHES)
+    out["drive_s"] = time.perf_counter() - t_drive
+    print(f"host path launches: {json.dumps(lc)} ({out['drive_s']:.1f} s; "
+          f"extract_tfg_batch fd_demod launches per CP group "
+          f"{[counts['tfg_' + cp] for cp in caps]}; host tracker with the "
+          f"card's searcher {json.dumps(counts['host_torch'])}; the engine "
+          f"on sample-carrying PDUs {json.dumps(counts['sample'])})",
+          flush=True)
+    for name in HOST_KERNELS:
+        check(lc[name] > 0, f"{name} launched {lc[name]} time(s) on the "
+              "host path")
+    check(all(counts[f"tfg_{cp}"] == 1 for cp in caps),
+          "extract_tfg_batch launches K4's MIB mode once per CP group: "
+          f"{[counts['tfg_' + cp] for cp in caps]}")
+    check(all(counts["host_torch"][k] > 0
+              for k in ("xcorr_fold", "fd_demod", "viterbi"))
+          and counts["host_torch"]["fd_demod_stream"] == 0,
+          "LTETracker(batch=False, backend='torch'): its searcher launches "
+          "K1, K4 (MIB mode) and K5, and no engine runs: "
+          f"{json.dumps(counts['host_torch'])}")
+    check(counts["sample"]["fd_demod_stream"] > 0,
+          "the engine on sample-carrying PDUs launches K4's stream mode "
+          f"{counts['sample']['fd_demod_stream']} time(s)")
+
+    # ---- the float64 search against the card's.
+    for (cp, interp), cells in host_cells.items():
+        want = found[cp]
+        same = len(cells) == len(want) and all(
+            [getattr(a, f) for f in CELL_FIELDS]
+            == [getattr(b, f) for f in CELL_FIELDS]
+            and abs(a.freq_superfine - b.freq_superfine) < 0.5
+            for a, b in zip(cells, want))
+        check(same, f"cell_search(backend='numpy', interp={interp!r}) on "
+              f"the {cp} CP capture ({out[f'search_{cp}_{interp}_s']:.1f} "
+              f"s): {[(c.n_id_cell(), c.n_rb_dl, c.sfn) for c in cells]} "
+              "equal the card's cells and MIB fields, freq_superfine "
+              "within 0.5 Hz: "
+              f"{[round(c.freq_superfine, 4) for c in cells]} / "
+              f"{[round(c.freq_superfine, 4) for c in want]}")
+
+    # ---- the full grid against the float64 host grid, then K4 there.
+    fd_full = {}
+    for cp, cells in groups.items():
+        grid, ts, ok = tfg[cp]
+        n_ofdm = 854 if cp == "normal" else 732
+        ts_err = tfg_err = 0.0
+        for b, cell in enumerate(cells):
+            tfg_h, ts_h = extract_tfg(cell, caps[cp], FC, FC, 1.92e6)
+            ts_err = max(ts_err, float(np.abs(ts[b] - ts_h).max()))
+            tfg_err = max(tfg_err, float(np.abs(grid[b] - tfg_h).max()
+                                         / np.abs(tfg_h).max()))
+        check(grid.shape == (HOST_TFG_B, n_ofdm, 72) and ok.all()
+              and ts_err <= 1e-9 and tfg_err <= 2e-3,
+              f"extract_tfg_batch {cp} CP, B={HOST_TFG_B}: {grid.shape}, ok "
+              f"{int(ok.sum())}/{HOST_TFG_B}; against the float64 host "
+              f"extract_tfg per cell: timestamps within {ts_err:.2e} (want "
+              f"<= 1e-9), grid within {tfg_err:.3e} x max (want <= 2e-3)")
+        plan = mib_torch.mib_plan(cells, len(caps[cp]))
+        args = mib_torch.fd_demod_inputs(plan, dev, full_grid=True)
+        got = fd_demod(cap_dev[cp], *args)
+        want = fd_demod_plain(cap_dev[cp], *args)
+        err, mx = float((got - want).abs().max()), float(want.abs().max())
+        n = args[0].shape[0]
+        check(err <= 1e-4 * mx, f"fd_demod on the full grid ({cp} CP, "
+              f"N={n}): max abs err {err:.3e} (tolerance 1e-4 * max "
+              f"{mx:.3e})")
+        t_k = cuda_ms(lambda: fd_demod(cap_dev[cp], *args))
+        t_p = cuda_ms(lambda: fd_demod_plain(cap_dev[cp], *args))
+        t_call = host_ms(lambda: mib_torch.extract_tfg_batch(cells,
+                                                             cap_dev[cp]))
+        b_ms = bound(n * (FFT128_FLOPS + 128 * 8 + 72 * 16),
+                     8 * len(caps[cp]) + n * 4 * 4 + 4 * 72 + n * 72 * 8)
+        t_fft = fd_yardsticks(n)[0]
+        fd_full[cp] = dict(n=n, ms=t_k, plain_ms=t_p, bound_ms=b_ms[0],
+                           bound_by=b_ms[1], library_ms=t_fft, err=err,
+                           call_ms=t_call)
+        print(f"extract_tfg_batch {cp} CP at B={HOST_TFG_B}: {t_call:.3f} "
+              f"ms per call (host clock, median of {REPS}); its fd_demod "
+              f"launch N={n}: {t_k:.4f} ms (plain {t_p:.4f} ms, bound "
+              f"{b_ms[0]:.4f} ms by {b_ms[1]}, {100 * b_ms[0] / t_k:.1f}%; "
+              f"torch.fft.fft (N, 128) {t_fft:.4f} ms; CUDA events, median "
+              f"of {REPS}); {card_line()}", flush=True)
+    out["fd_full"] = fd_full
+
+    # ---- the host tracker: card searcher against the CPU and numpy.
+    st = card["status"]
+    got = [(c["n_id_cell"], c["health"]) for c in st["cells"]]
+    check(got == [(271, 1.0)] and st["cells"][0]["mib_successes"] > 10,
+          f"LTETracker(batch=False, backend='torch') on the card: cells (id, "
+          f"health) {got}, MIB decodes "
+          f"{[c['mib_successes'] for c in st['cells']]} (want > 10), FO "
+          f"{st['frequency_offset']:.4f} Hz ({card['s']:.1f} s for "
+          f"{HOST_BLOCKS} blocks)")
+    cpu = events_of("torch", "cpu")
+
+    def same_run(a, b, what):
+        """The same events (kinds and cells; acquisition frame timing
+        within 0.1), cells, MIB decodes and health; FO within 2 Hz, frame
+        timing within 0.1 (tests/test_torch_host_tracker.py's bounds
+        between the two searchers)."""
+        ka = [(k, {x: v for x, v in i.items() if x != "frame_timing"})
+              for k, i in a["events"]]
+        kb = [(k, {x: v for x, v in i.items() if x != "frame_timing"})
+              for k, i in b["events"]]
+        fa = [i.get("frame_timing", 0.0) for _, i in a["events"]]
+        fb = [i.get("frame_timing", 0.0) for _, i in b["events"]]
+        sa, sb = a["status"], b["status"]
+        cells = [[(c["n_id_cell"], c["mib_successes"], c["health"])
+                  for c in s["cells"]] for s in (sa, sb)]
+        d_ft = max([abs(x - y) for x, y in zip(fa, fb)]
+                   + [abs(x["frame_timing"] - y["frame_timing"])
+                      for x, y in zip(sa["cells"], sb["cells"])], default=0)
+        d_fo = abs(sa["frequency_offset"] - sb["frequency_offset"])
+        check(ka == kb and cells[0] == cells[1] and d_fo < 2.0
+              and d_ft < 0.1,
+              f"{what}: events {[k for k, _ in a['events']]} equal: "
+              f"{ka == kb}; cells (id, MIB decodes, health) {cells[0]} / "
+              f"{cells[1]}; FO {sa['frequency_offset']:.4f} / "
+              f"{sb['frequency_offset']:.4f} Hz (within 2); frame timing "
+              f"within {d_ft:.2e} (want < 0.1)")
+
+    same_run(card, cpu, "host tracker, the card's searcher against a "
+             "device='cpu' run")
+    same_run(numpy_run, card, "host tracker, backend='numpy' against "
+             "backend='torch' on the card")
+    out["host_ms_per_block"] = {
+        "torch": 1e3 * card["s"] / HOST_BLOCKS,
+        "numpy": 1e3 * numpy_run["s"] / HOST_BLOCKS,
+        "engine": 1e3 * trk_s / 400}
+    print("host tracker ms per 10,000-sample block at 1 cell (host clock, "
+          f"{HOST_BLOCKS} blocks, searcher included): card's searcher "
+          f"{out['host_ms_per_block']['torch']:.3f}, numpy searcher "
+          f"{out['host_ms_per_block']['numpy']:.3f}; the engine on the card "
+          f"{out['host_ms_per_block']['engine']:.3f}; {card_line()}",
+          flush=True)
+
+    # ---- the engine on sample-carrying PDUs against descriptor mode.
+    d_cells = [(c["n_id_cell"], c["mib_successes"], c["health"])
+               for c in desc_run[0]["cells"]]
+    for name, run in sample.items():
+        same, errs = tap_errors(run["taps"], desc_run[1])
+        cells = [(c["n_id_cell"], c["mib_successes"], c["health"])
+                 for c in run["status"]["cells"]]
+        check(cells == d_cells and same and errs
+              and all(e[2] for e in errs.values()),
+              f"the engine on sample-carrying PDUs ({name} feeder, "
+              f"{TAP_BLOCKS} blocks, {run['s']:.1f} s) against descriptor "
+              f"mode: cells {cells} / {d_cells}; taps (n_id, slot, sym) "
+              f"equal: {same}; max abs err (of max) " + ", ".join(
+                  f"{k} {e[0]:.3e} ({e[1]:.3e})" for k, e in errs.items())
+              + f"; FO {run['status']['frequency_offset']:.4f} / "
+              f"{desc_run[0]['frequency_offset']:.4f} Hz")
+        out[f"sample_{name}_err"] = errs
+    big = max(sizes, key=lambda a: a[1].shape[0])
+    got, want = fd_demod_stream(*big), fd_demod_stream_plain(*big)
+    err, mx = float((got - want).abs().max()), float(want.abs().max())
+    check(err <= 1e-4 * mx,
+          f"fd_demod_stream on sample-carrying windows (N="
+          f"{big[1].shape[0]}, starts 128 k): max abs err {err:.3e} "
+          f"(tolerance 1e-4 * max {mx:.3e})")
+    out["sample_err"] = err
+
+    # ---- the float64 chain's time per capture against the card's (the
+    # chain runs on the host only: no device sync).
+    runs_ms = []
+    for _ in range(HOST_REPS):
+        t0 = time.perf_counter()
+        cell_search(caps["normal"], FC, f_search_set=fset, backend="numpy")
+        runs_ms.append(round((time.perf_counter() - t0) * 1e3, 3))
+    out["search_ms"] = float(np.median(runs_ms))
+    print(f"cell_search normal CP, 31 hypotheses: float64 host chain "
+          f"{out['search_ms']:.3f} ms per capture (host clock, median of "
+          f"{HOST_REPS}: {runs_ms}) against the card's {e2e_ms:.3f} ms "
+          f"({out['search_ms'] / e2e_ms:.0f}x); {card_line()}", flush=True)
     return out
 
 
@@ -2456,8 +2804,12 @@ def main() -> int:
     native = native_path(sig_trk)
     print(f"native feeder path: {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    host = host_path(caps, fset31, found, sig_trk, native["py"],
+                     e2e["normal"], t_trk)
+    print(f"host path: {time.perf_counter() - t0:.1f} s", flush=True)
     path_launches.update(playback=play["launches"],
-                         native=native["launches"])
+                         native=native["launches"], host=host["launches"])
     print(f"viterbi at the tracker batch L={n_trk_cw}: {t_vit_trk:.4f} ms "
           f"(plain {t_vit_trk_plain:.4f} ms, bound {vit_trk_b[0]:.4f} ms by "
           f"{vit_trk_b[1]})")
@@ -2523,6 +2875,9 @@ def main() -> int:
                    batch296_max_abs_err=wband["k1_err"])
     rows[0].update(batch32_ms=multi["k1_shard"][SWEEP_B // 2],
                    batch32_bound_ms=kb["bound_ms"] / 2)
+    for cp, f in host["fd_full"].items():
+        rows[3].update({f"full_grid_{cp}_{k}": v for k, v in f.items()})
+    rows[4].update(sample_mode_max_abs_err=host["sample_err"])
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "

@@ -17,6 +17,10 @@ decode_mib). One program runs every surviving candidate of a capture:
   the tail-biting Viterbi is the ``viterbi`` CUDA kernel
   (models/viterbi.py), and the CRC16 check is a GF(2) product.
 
+:func:`extract_tfg_batch` runs the same plan's windows at EVERY row of
+the grid (854 normal-CP rows, 732 extended) through the same kernel, for
+consumers beyond the MIB chain.
+
 Float64 sample-index arithmetic (symbol timestamps, absolute FOC phases)
 stays on the host in :func:`mib_plan`, which quantizes the phases to
 2*pi/65536 and the lateness to 2^-15 samples exactly as the JAX planner
@@ -606,20 +610,21 @@ def _sfbc_dev(pbch_sym, pbch_ce, np_v):
             torch.stack([np1p, np2p, np4p], dim=2))
 
 
-def _unpack_plan(plan, k: _Consts, dev, non_blocking=False):
+def _unpack_plan(plan, rows: torch.Tensor, dev, non_blocking=False):
     """The plan's symbol starts, FOC phases, lateness and timestamps at
-    the compact rows, as the device works with them: (starts (B, S) i64,
-    phase0 (B, S) f32, late (B, S) f32, ts (B, S) f32, n_id (B,) i64)."""
+    the grid rows ``rows`` (the compact rows, or all of them), as the
+    device works with them: (starts (B, S) i64, phase0 (B, S) f32, late
+    (B, S) f32, ts (B, S) f32, n_id (B,) i64)."""
     def put(a):
         return upload(a, dev, non_blocking)
 
     start0 = put(plan.start0).long()
     sdelta = put(plan.sdelta).long()
     base = put(plan.base).long()
-    starts = (start0[:, None] + torch.cumsum(sdelta, dim=1))[:, k.idx_c]
-    phase0 = put(plan.phase0_q)[:, k.idx_c].to(torch.float32) * float(
+    starts = (start0[:, None] + torch.cumsum(sdelta, dim=1))[:, rows]
+    phase0 = put(plan.phase0_q)[:, rows].to(torch.float32) * float(
         np.float32(2.0 * np.pi / 65536.0))
-    late = put(plan.late_q)[:, k.idx_c].to(torch.float32) * float(
+    late = put(plan.late_q)[:, rows].to(torch.float32) * float(
         np.float32(1.0 / 32768.0))
     # (starts - base) is a position within one capture (< n_cap < 2^24)
     # for a stack of any size, so the rebuilt f32 timestamps carry the
@@ -638,12 +643,18 @@ def _demod_args(starts, inwin, phase0, late):
             MIB_DFT)
 
 
-def fd_demod_inputs(plan, device) -> tuple:
+def fd_demod_inputs(plan, device, full_grid: bool = False) -> tuple:
     """The fd_demod arguments (after the capture) that :func:`run` gives
-    the kernel for ``plan`` — for measuring the kernel alone."""
+    the kernel for ``plan`` (with ``full_grid``, those of
+    :func:`extract_tfg_batch`: every row of the grid) — also for
+    measuring the kernel alone."""
     dev = torch.device(device)
-    k = _consts(plan.n_symb_dl, plan.n_ofdm, plan.m_bit, "hex", dev)
-    starts, phase0, late, _, _ = _unpack_plan(plan, k, dev)
+    if full_grid:
+        rows = torch.arange(plan.n_ofdm, device=dev)
+    else:
+        rows = _consts(plan.n_symb_dl, plan.n_ofdm, plan.m_bit, "hex",
+                       dev).idx_c
+    starts, phase0, late, _, _ = _unpack_plan(plan, rows, dev)
     return _demod_args(starts, upload(plan.inwin, dev), phase0, late)
 
 
@@ -670,7 +681,8 @@ def run(cap: torch.Tensor, plan, interp: str = "hex",
         if stages is not None:
             stages[name] = vals[0] if len(vals) == 1 else vals
 
-    starts, phase0, late, ts, n_id = _unpack_plan(plan, k, dev, non_blocking)
+    starts, phase0, late, ts, n_id = _unpack_plan(plan, k.idx_c, dev,
+                                                  non_blocking)
     inwin, omk_base, inv_fcp = (upload(a, dev, non_blocking) for a in (
         plan.inwin, plan.omk_base, plan.inv_fcp))
     B, S = starts.shape
@@ -829,6 +841,39 @@ def decode_mib_batch(cells: List[Cell], cap: torch.Tensor,
     if defer:
         return MibPending(HostFetch(out), plan)
     return finish_mib_batch(MibPending(out, plan))
+
+
+def extract_tfg_batch(cells: List[Cell], cap: torch.Tensor,
+                      n_cap: Optional[int] = None,
+                      cap_bases: Optional[Sequence[int]] = None):
+    """The FULL extract_tfg grid of same-CP cells on the device: every
+    OFDM row of the reference's 6-frame + 2-slot grid (854 rows normal
+    CP, 732 extended; src/searcher.cpp:852-935), demodulated by the
+    ``fd_demod`` kernel in one launch from the same plan as the MIB
+    program (:func:`mib_plan`), for consumers beyond the MIB chain. The
+    MIB program keeps its compact rows; values at shared rows are the
+    same arithmetic.
+
+    cap, ``n_cap`` and ``cap_bases`` are those of
+    :func:`decode_mib_batch`; fc/fs are read per cell. Returns (tfg (B,
+    n_ofdm, 72) complex64, timestamps (B, n_ofdm) float64 from the host's
+    :func:`symbol_timestamps_batch`, ok (B,) bool): a cell whose grid
+    passes the capture's end gets ok False and meaningless rows.
+    """
+    if not cells:
+        return (np.zeros((0, 0, 72), np.complex64), np.zeros((0, 0)),
+                np.zeros(0, bool))
+    plan = mib_plan(cells, cap.shape[0] if n_cap is None else n_cap,
+                    cap_bases)
+    out = fd_demod(cap, *fd_demod_inputs(plan, cap.device, full_grid=True))
+    out = out.view(len(cells), plan.n_ofdm, 72, 2).cpu().numpy()
+    k = np.array([(c.fc_requested - c.freq_fine) / c.fc_programmed
+                  for c in cells])
+    ts = symbol_timestamps_batch(
+        cells[0].cp_type, np.array([c.frame_start for c in cells]),
+        np.array([c.fs_programmed for c in cells]), k)
+    return ((out[..., 0] + 1j * out[..., 1]).astype(np.complex64), ts,
+            plan.ok.copy())
 
 
 def finish_mib_batch(pending: MibPending) -> List[Cell]:

@@ -6,10 +6,13 @@ correction factor). Captures come from recordings (``--load``), the
 built-in eNodeB simulator (``--simulate``) or an RTL-SDR dongle (needs
 pyrtlsdr); ``--record`` saves what was captured. The search runs on the
 CUDA card unless ``--device cpu`` asks for the plain PyTorch versions of
-the kernels. ``--batch-sweep`` captures the whole sweep first, then scans
-it in one batch and decodes every candidate in two batched programs
-(parallel/fc_sweep.py); with ``--sweep-batch N`` it runs as a pipeline
-over chunks of N captures (search/pipeline.py). ``--wideband FILE``
+the kernels, or unless ``--backend numpy`` asks for the float64 host
+chain (the JAX package's default), candidate by candidate on the CPU;
+``--interp 2stage`` runs the 2stage interpolator only there (the card
+runs it as freq_time). ``--batch-sweep`` captures the whole sweep first,
+then scans it in one batch and decodes every candidate in two batched
+programs (parallel/fc_sweep.py); with ``--sweep-batch N`` it runs as a
+pipeline over chunks of N captures (search/pipeline.py). ``--wideband FILE``
 searches one wideband recording instead: every raster carrier of
 [freq-start, freq-end] is channelized out of it on the device and swept
 as one batch (search/wideband.py). With ``--device cuda`` (the default)
@@ -22,6 +25,8 @@ until scaling across cards is measured (PERF.md).
 Usage:
     python -m lte_cell_scanner_tpu_torch.search.cli \\
         --freq-start 739e6 --simulate [--device cuda|cpu]
+    python -m lte_cell_scanner_tpu_torch.search.cli \\
+        --freq-start 739e6 --simulate --backend numpy --interp 2stage
     python -m lte_cell_scanner_tpu_torch.search.cli \\
         --freq-start 739e6 --freq-end 745.3e6 --simulate \\
         --batch-sweep --sweep-batch 32
@@ -87,9 +92,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-v", "--verbose", action="count", default=1)
     p.add_argument("-b", "--brief", action="store_true",
                    help="only print the final result table")
+    p.add_argument("--backend", choices=("torch", "numpy"),
+                   default="torch",
+                   help="torch (default): the search on --device; numpy: "
+                   "the float64 host chain on the CPU (not with "
+                   "--batch-sweep or --wideband)")
     p.add_argument("--interp", choices=("hex", "freq_time", "2stage"),
                    default="hex", help="channel-estimate interpolator "
-                   "(2stage runs as freq_time)")
+                   "(2stage is real only with --backend numpy; the card "
+                   "runs it as freq_time)")
     p.add_argument("--batch-sweep", action="store_true",
                    help="capture the whole sweep first, then scan it in "
                         "one batch and decode every candidate in two "
@@ -141,6 +152,9 @@ def validate(args) -> None:
         sys.exit("Error: ppm must be non-negative")
     if args.sweep_batch < 0:
         sys.exit("Error: sweep-batch must be non-negative")
+    if args.backend == "numpy" and (args.batch_sweep or args.wideband):
+        sys.exit("Error: --batch-sweep and --wideband require --backend "
+                 "torch (the batched sweeps run on the device)")
     # Round to the 100 kHz raster like the reference.
     for name in ("freq_start", "freq_end"):
         f = getattr(args, name)
@@ -155,7 +169,8 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     validate(args)
     verbosity = 0 if args.brief else args.verbose
-    resolve_device(args.device)     # raises without CUDA unless cpu
+    if args.backend == "torch":
+        resolve_device(args.device)     # raises without CUDA unless cpu
 
     fc_search_set, f_search_set = generate_search_sets(
         args.freq_start, args.freq_end, args.ppm)
@@ -190,7 +205,8 @@ def main(argv=None) -> int:
         capbuf, fc_programmed = _capture(source, fc_requested)
         cells = cell_search(capbuf, fc_requested, fc_programmed,
                             f_search_set=f_search_set, interp=args.interp,
-                            verbose=verbosity, device=args.device)
+                            verbose=verbosity, device=args.device,
+                            backend=args.backend)
         if verbosity >= 2:
             print(f"  ({time.time() - t0:.2f}s)")
         all_cells.extend(cells)

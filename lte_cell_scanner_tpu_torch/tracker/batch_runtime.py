@@ -6,7 +6,9 @@ device programs per processing cycle —
 
   demod:  symbol demod of every cell's windows straight from the raw u8
           stream uploaded once per cycle (the ``fd_demod_stream`` CUDA
-          kernel, ops/fd_demod.py), raw-CE extraction at every RS
+          kernel, ops/fd_demod.py; PDUs that carry their samples go
+          through the same kernel, their u8 windows laid end to end as
+          the segment), raw-CE extraction at every RS
           position (RS sequences in device-resident per-cell tables) and
           the PSS/SSS sync measurements of every complete pair
           [batch_frontend.*]
@@ -322,13 +324,17 @@ class BatchTrackerEngine:
             if sp is not None:
                 self._stats_finish(work, sp)
         else:
-            # Nothing consumes the sample ring (searcher still hunting or
-            # all cells dropped): prune it so it cannot grow unboundedly.
-            keep_from = self._stream_end - 2 * 1920 * 1000  # ~2 s
-            while (len(self._blocks) > 1 and self._blocks[0][0]
-                   + len(self._blocks[0][1]) < keep_from):
-                self._blocks.popleft()
+            self._prune_ring()
         self._finalize(cells)
+
+    def _prune_ring(self) -> None:
+        """Keep ~2 s of the sample ring when nothing consumes it (the
+        searcher still hunting, every cell dropped, or PDUs that carry
+        their samples), so that it cannot grow unboundedly."""
+        keep_from = self._stream_end - 2 * 1920 * 1000
+        while (len(self._blocks) > 1 and self._blocks[0][0]
+               + len(self._blocks[0][1]) < keep_from):
+            self._blocks.popleft()
 
     # ------------------------------------------------------------------
     def _dispatch_demod(self, work):
@@ -343,7 +349,13 @@ class BatchTrackerEngine:
         P = max(c.n_ports for c, _ in work)
         cyc = {"cells": [], "C": C, "P": P}
 
-        starts = np.zeros((C, S), np.int64)
+        # Descriptor PDUs carry their window's stream index; sample-
+        # carrying PDUs (feeder emit_descriptors=False) carry the samples.
+        stream_mode = work[0][1][0].start is not None
+        if stream_mode:
+            starts = np.zeros((C, S), np.int64)
+        else:
+            data = np.zeros((C, S, 128, 2), np.uint8)
         foc_rate = np.zeros((C, S), np.float32)
         late = np.zeros((C, S), np.float32)
         fo = np.zeros((C, S), np.float64)
@@ -355,11 +367,18 @@ class BatchTrackerEngine:
             bpo0[ci] = ctx.bpo
             n_symb_dl = cell.n_symb_dl
             n = len(pdus)
+            if stream_mode:
+                starts[ci, :n] = np.fromiter(
+                    (p.start for p in pdus), np.int64, n)
+            else:
+                # The samples back to the u8 levels they were fed as.
+                blk = np.stack([p.data for p in pdus])      # (n, 128)
+                data[ci, :n, :, 0] = np.round(blk.real * 128.0 + 127.0)
+                data[ci, :n, :, 1] = np.round(blk.imag * 128.0 + 127.0)
             # One pass over the PDU objects for all metadata fields.
             meta_np = np.array([(p.frequency_offset, p.late, p.sym_num,
-                                 p.slot_num, p.frame_timing, p.start)
+                                 p.slot_num, p.frame_timing)
                                 for p in pdus], np.float64)
-            starts[ci, :n] = meta_np[:, 5].astype(np.int64)
             fo_c = meta_np[:, 0]
             fo[ci, :n] = fo_c
             k = (state.fc_requested - fo_c) / state.fc_programmed
@@ -427,21 +446,26 @@ class BatchTrackerEngine:
         else:
             late_u = late.astype(np.float32)
 
-        # The windows of every cell lie in [lo, hi): upload exactly that
-        # span of the stream. A window's lanes read samples [s, s + 128)
-        # only, so nothing reads past hi.
-        lo = min(int(starts[ci, :info["n"]].min())
-                 for ci, info in enumerate(cyc["cells"]))
-        hi = max(int(starts[ci, :info["n"]].max())
-                 for ci, info in enumerate(cyc["cells"])) + 128
-        seg = self._stream_segment(lo, hi)
         rs_conj_tab, shift_tab, pss_conj, sss_tab = self._tables(work)
-        flat, ce_dev = _demod_stream(
-            self._up(seg), self._up((starts - lo).clip(0).astype(np.int32)),
-            self._up(foc_rate), self._up(bpo_u), self._up(late_u),
-            rs_conj_tab, shift_tab, self._up(rs_idx), self._up(rs_slot),
-            self._up(rs_sym), self._up(keep_idx), self._up(pair_idx),
-            self._up(pair_sel), pss_conj, sss_tab)
+        plan = (self._up(foc_rate), self._up(bpo_u), self._up(late_u),
+                rs_conj_tab, shift_tab, self._up(rs_idx), self._up(rs_slot),
+                self._up(rs_sym), self._up(keep_idx), self._up(pair_idx),
+                self._up(pair_sel), pss_conj, sss_tab)
+        if stream_mode:
+            # The windows of every cell lie in [lo, hi): upload exactly
+            # that span of the stream. A window's lanes read samples
+            # [s, s + 128) only, so nothing reads past hi.
+            lo = min(int(starts[ci, :info["n"]].min())
+                     for ci, info in enumerate(cyc["cells"]))
+            hi = max(int(starts[ci, :info["n"]].max())
+                     for ci, info in enumerate(cyc["cells"])) + 128
+            seg = self._stream_segment(lo, hi)
+            flat, ce_dev = _demod_stream(
+                self._up(seg),
+                self._up((starts - lo).clip(0).astype(np.int32)), *plan)
+        else:
+            self._prune_ring()
+            flat, ce_dev = _demod_samples(self._up(data), *plan)
         # The fetch is consumed in _ingest_demod (after the stats
         # dispatch); its copy is enqueued HERE, first, so it starts as
         # soon as the demod program finishes.
@@ -1042,6 +1066,19 @@ def _demod_stream(seg_u8, starts, foc_rate, bpo, late, rs_conj_tab,
     return _demod_tail(syms, rs_conj_tab, shift_tab, rs_idx, rs_slot,
                        rs_sym, keep_idx, pair_idx, pair_sel, pss_conj,
                        sss_tab)
+
+
+def _demod_samples(data_u8, *plan):
+    """Demod program on windows that came with their samples: data (C, S,
+    128, 2) u8, the rest :func:`_demod_stream`'s. The windows lie end to
+    end as one segment, window k at sample 128 k: every start is
+    128-aligned, so the ``fd_demod_stream`` kernel's blend reads one row
+    (b = 0) and its lanes are the window's samples in order (j = 0..127),
+    the JAX engine's _demod_jit on the same windows."""
+    C, S = data_u8.shape[:2]
+    starts = 128 * torch.arange(C * S, dtype=torch.int32,
+                                device=data_u8.device).view(C, S)
+    return _demod_stream(data_u8.reshape(C * S * 128, 2), starts, *plan)
 
 
 def _demod_tail(syms, rs_conj_tab, shift_tab, rs_idx, rs_slot, rs_sym,

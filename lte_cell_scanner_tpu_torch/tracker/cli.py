@@ -7,6 +7,10 @@ or raw rtl_sdr bytes with ``--rtl-sdr-format``) or the built-in eNodeB
 simulator (``--simulate``), pushed through the same uint8
 re-quantization as live data. The tracker runs on the CUDA card unless
 ``--device cpu`` asks for the plain PyTorch versions of the kernels.
+``--no-batch`` runs the host data plane (one float64 CellTracker per cell,
+fed sample-carrying PDUs) instead of the batched engine, and ``--backend
+numpy`` the searcher and the calibration as the float64 host chain: with
+both, nothing runs on a device (the JAX package's defaults).
 
 Usage:
     python -m lte_cell_scanner_tpu_torch.tracker.cli -f 739e6 \\
@@ -15,6 +19,8 @@ Usage:
         --load capture.raw --rtl-sdr-format [--drop 0.5]
     python -m lte_cell_scanner_tpu_torch.tracker.cli -f 739e6 --simulate \\
         [--feeder native] [--expert] [--display] [--device cuda|cpu]
+    python -m lte_cell_scanner_tpu_torch.tracker.cli -f 739e6 --simulate \\
+        --no-batch --backend numpy [--feeder native]
 """
 
 from __future__ import annotations
@@ -53,6 +59,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="use the built-in eNodeB simulator as the source")
     p.add_argument("--blocks", type=int, default=None,
                    help="stop after N 10000-sample blocks (default: forever)")
+    p.add_argument("--backend", choices=("torch", "numpy"),
+                   default="torch",
+                   help="searcher and calibration: torch (default: the "
+                   "cell search on --device) or numpy (the float64 host "
+                   "chain)")
+    p.add_argument("--batch", action="store_true", default=True,
+                   help="the batched engine on --device (default)")
+    p.add_argument("--no-batch", dest="batch", action="store_false",
+                   help="one host CellTracker per cell (float64), fed "
+                   "sample-carrying PDUs")
     p.add_argument("--engine-every", type=int, default=1,
                    help="engine cadence in 10000-sample blocks")
     p.add_argument("--feeder", choices=("python", "native"),
@@ -101,7 +117,8 @@ def main(argv=None) -> int:
         if args.verbose:
             print(f"[{kind}] {info}")
 
-    trk = LTETracker(args.freq_center, engine_every=args.engine_every,
+    trk = LTETracker(args.freq_center, backend=args.backend,
+                     batch=args.batch, engine_every=args.engine_every,
                      feeder=args.feeder, on_event=on_event,
                      device=args.device)
     trk.state.debug_g = tuple(getattr(args, f"g{i}") for i in range(1, 10))

@@ -10,9 +10,10 @@ The source is compiled with ``g++ -O2 -std=c++17 -fPIC -shared`` into
 ``build/native/libfeeder.so`` at the root of the checkout, again whenever
 the source is newer than the library; the ``native/`` directory is only
 read. A failed build or load raises: there is no fallback to the Python
-feeder. The feeder runs in descriptor mode, the only mode the port's
-engine takes: a PDU carries its window's absolute stream index and no
-samples.
+feeder. In descriptor mode (the default, the batched engine's) a PDU
+carries its window's absolute stream index and no samples; with
+``emit_descriptors=False`` (the host CellTracker's) it carries its 128
+complex samples, as the C++ side copied them from the raw bytes.
 """
 
 from __future__ import annotations
@@ -103,18 +104,28 @@ class NativeSampleFeeder:
     state machine in C++ consuming the raw uint8 bytes (:meth:`feed_bytes`)."""
 
     def __init__(self, state: GlobalState,
-                 searcher_capbuf_len: int = FRAME * 8):
+                 searcher_capbuf_len: int = FRAME * 8,
+                 emit_descriptors: bool = True):
         self._lib = _load()
         self.state = state
         self.searcher_capbuf_len = int(searcher_capbuf_len)
         self._h = self._lib.feeder_create(self.searcher_capbuf_len)
-        self._lib.feeder_set_descriptor_mode(self._h, 1)
+        self.emit_descriptors = emit_descriptors
         self._known: Set[int] = set()      # the cells the C++ side holds
         self.searcher_ready: Optional[np.ndarray] = None
         self.searcher_late = 0.0
-        # feeder_get_pdus also copies each PDU's (unused) sample payload:
-        # a scratch buffer grown as needed receives it.
+        # feeder_get_pdus copies each PDU's sample payload (unused in
+        # descriptor mode): a scratch buffer grown as needed receives it.
         self._scratch = np.empty(0, np.float32)
+
+    @property
+    def emit_descriptors(self) -> bool:
+        return self._descriptors
+
+    @emit_descriptors.setter
+    def emit_descriptors(self, on: bool) -> None:
+        self._descriptors = bool(on)
+        self._lib.feeder_set_descriptor_mode(self._h, 1 if on else 0)
 
     def __del__(self):
         h = getattr(self, "_h", None)
@@ -160,21 +171,28 @@ class NativeSampleFeeder:
         if n:
             meta = np.empty((n, 3), dtype=np.int32)
             vals = np.empty((n, 3), dtype=np.float64)
-            starts = np.empty(n, dtype=np.int64)
             if self._scratch.size < n * 256:
                 self._scratch = np.empty(n * 256, np.float32)
             self._lib.feeder_get_pdus(self._h, meta.ctypes.data,
                                       vals.ctypes.data,
                                       self._scratch.ctypes.data)
-            self._lib.feeder_get_pdu_starts(self._h, starts.ctypes.data)
+            if self._descriptors:
+                starts = np.empty(n, dtype=np.int64)
+                self._lib.feeder_get_pdu_starts(self._h, starts.ctypes.data)
+                datas = [None] * n
+                starts = starts.tolist()
+            else:
+                iq = self._scratch[:n * 256].reshape(n, 128, 2)
+                datas = list((iq[..., 0] + 1j * iq[..., 1]).astype(complex))
+                starts = [None] * n
             by_id = {c.n_id_cell: c for c in cells}
-            for m, v, s in zip(meta.tolist(), vals.tolist(),
-                               starts.tolist()):
+            for m, v, s, d in zip(meta.tolist(), vals.tolist(), starts,
+                                  datas):
                 cell = by_id.get(m[0])
                 if cell is None:
                     continue
                 cell.push_pdu(SymbolPDU(
-                    slot_num=m[1], sym_num=m[2], late=v[0],
+                    data=d, slot_num=m[1], sym_num=m[2], late=v[0],
                     frequency_offset=v[1], frame_timing=v[2], start=s))
 
         if self._lib.feeder_searcher_ready(self._h):

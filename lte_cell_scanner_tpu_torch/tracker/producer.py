@@ -4,11 +4,15 @@ reference: src/producer_thread.cpp:59-252. The feeder advances a fractional
 "LTE sample clock" mod 19200 by (FS_LTE/16)/(fs_programmed*k_factor) per
 received sample — software resampling by index arithmetic. It fills the
 searcher's capture buffer when the clock crosses zero and a request is
-pending, and per tracked cell emits one descriptor per 128-sample OFDM-
-symbol window starting at frame_timing + target_cap_start_time (cyclic
-prefixes are skipped by advancing the target by 128+{9,10,32}). A
-descriptor carries the window's absolute stream index; the engine gathers
-the samples on the device.
+pending, and per tracked cell captures 128-sample OFDM-symbol windows
+starting at frame_timing + target_cap_start_time (cyclic prefixes are
+skipped by advancing the target by 128+{9,10,32}).
+
+In descriptor mode (the default, the batched engine's) a PDU carries the
+window's absolute stream index and the engine gathers the samples on the
+device; with ``emit_descriptors=False`` (the host CellTracker's) it
+carries a copy of its 128 complex samples. A C++ implementation of the
+same state machine is tracker/native_feeder.py.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ class _CellCapture:
     sym_num: int = 0
     target_cap_start_time: float = 0.0
     filling: bool = False
+    buffer: Optional[np.ndarray] = None
     buffer_offset: int = 0
     late: float = 0.0
     frequency_offset: float = 0.0
@@ -49,7 +54,8 @@ def slot_sym_inc(n_symb_dl: int, slot_num: int, sym_num: int):
 class SampleFeeder:
     """Distributes a continuous sample stream to searcher + cell trackers."""
 
-    def __init__(self, state: GlobalState, searcher_capbuf_len: int = FRAME * 8):
+    def __init__(self, state: GlobalState, searcher_capbuf_len: int = FRAME * 8,
+                 emit_descriptors: bool = True):
         self.state = state
         self.sample_time = -1.0
         self.searcher_capbuf_len = searcher_capbuf_len
@@ -61,6 +67,9 @@ class SampleFeeder:
         self.searcher_ready: Optional[np.ndarray] = None
         self._cells: Dict[int, _CellCapture] = {}
         self._step = 1.0
+        # Descriptor mode (the batched engine): PDUs carry the window's
+        # absolute stream index instead of a copy of the samples.
+        self.emit_descriptors = emit_descriptors
         self.abs_sample = 0
 
     def request_searcher_capture(self) -> None:
@@ -91,7 +100,7 @@ class SampleFeeder:
             if cell.kill_me:
                 self._cells.pop(cell.n_id_cell, None)
                 continue
-            self._feed_cell(cell, ts, fo)
+            self._feed_cell(cell, samples, ts, fo)
         self.abs_sample += n
 
     # -- internals ---------------------------------------------------------
@@ -119,15 +128,17 @@ class SampleFeeder:
                 self.searcher_filling = False
                 self.searcher_ready = self.searcher_capbuf.copy()
 
-    def _feed_cell(self, cell: TrackedCell, ts: np.ndarray, fo: float) -> None:
+    def _feed_cell(self, cell: TrackedCell, samples: np.ndarray,
+                   ts: np.ndarray, fo: float) -> None:
         cl = self._cells.get(cell.n_id_cell)
         if cl is None or cl.serial_num != cell.serial_num:
             cl = _CellCapture(serial_num=cell.serial_num)
             cl.target_cap_start_time = 10 if cell.cp_type == "normal" else 32
+            cl.buffer = np.zeros(128, dtype=complex)
             self._cells[cell.n_id_cell] = cl
 
         frame_timing = cell.frame_timing
-        n = len(ts)
+        n = len(samples)
         step = self._step
         t = 0
         while t < n:
@@ -167,13 +178,21 @@ class SampleFeeder:
                 cl.frame_timing = frame_timing
                 cl.abs_start = self.abs_sample + t
             take = min(n - t, 128 - cl.buffer_offset)
+            if not self.emit_descriptors:
+                cl.buffer[cl.buffer_offset:cl.buffer_offset + take] = \
+                    samples[t:t + take]
             cl.buffer_offset += take
             t += take
             if cl.buffer_offset == 128:
                 cell.push_pdu(SymbolPDU(
-                    slot_num=cl.slot_num, sym_num=cl.sym_num, late=cl.late,
+                    data=(None if self.emit_descriptors
+                          else cl.buffer.copy()),
+                    slot_num=cl.slot_num,
+                    sym_num=cl.sym_num, late=cl.late,
                     frequency_offset=cl.frequency_offset,
-                    frame_timing=cl.frame_timing, start=cl.abs_start))
+                    frame_timing=cl.frame_timing,
+                    start=(cl.abs_start if self.emit_descriptors
+                           else None)))
                 cl.filling = False
                 if cell.cp_type == "extended":
                     cl.target_cap_start_time += 32 + 128

@@ -3,8 +3,9 @@
 reference: src/LTE-Tracker.cpp + the four thread modules. The reference
 wires five boost::thread types through mutex+condvar FIFOs; this runtime is
 a deterministic event loop — each iteration ingests one block of samples,
-advances the feeder, runs the batched device engine every
-``engine_every`` blocks, and runs the searcher when a capture completes.
+advances the feeder, runs the data plane (the batched device engine every
+``engine_every`` blocks, or one host CellTracker per cell), and runs the
+searcher when a capture completes.
 The same feedback loops exist:
 
     tracker FOE -> global frequency offset -> feeder's k_factor resampling
@@ -27,12 +28,14 @@ from lte_cell_scanner_tpu_torch.constants import (CELL_DROP_THRESHOLD, FRAME,
 from lte_cell_scanner_tpu_torch.io.raw import bytes_to_iq, iq_to_bytes
 from lte_cell_scanner_tpu_torch.tracker.batch_runtime import (
     BatchTrackerEngine)
+from lte_cell_scanner_tpu_torch.tracker.cell_tracker import CellTracker
 from lte_cell_scanner_tpu_torch.tracker.native_feeder import (
     NativeSampleFeeder)
 from lte_cell_scanner_tpu_torch.tracker.producer import SampleFeeder
 from lte_cell_scanner_tpu_torch.tracker.searcher import (kalibrate,
                                                          searcher_pass)
 from lte_cell_scanner_tpu_torch.tracker.state import GlobalState, TrackedCell
+from lte_cell_scanner_tpu_torch.utils.device import resolve_device
 
 BLOCK_SIZE = 10000
 
@@ -77,43 +80,64 @@ def _quantize(block, noise_power, rng):
 class LTETracker:
     """Tracks every detectable cell on one center frequency.
 
-    ``device=None`` runs the engine and the searcher on the CUDA card and
-    raises if there is none; ``device="cpu"`` runs the kernels' plain
-    PyTorch versions. ``engine_every`` is the engine's cadence in input
-    blocks: larger values amortize each cycle's fixed cost at the price
-    of feedback-loop lag (20 ~ one cycle per 104 ms of signal).
-    ``feeder="native"`` runs the sample feeder in C++
+    ``batch=True`` (the default) runs the data plane as the batched engine
+    (tracker/batch_runtime.py) on ``device``: ``None`` is the CUDA card (it
+    raises if there is none), ``"cpu"`` the kernels' plain PyTorch
+    versions. Its feeder emits descriptors; a caller who sets
+    ``feeder.emit_descriptors = False`` drives the engine's
+    sample-carrying mode. ``batch=False`` runs one host CellTracker per
+    cell (float64 NumPy), fed sample-carrying PDUs. ``backend`` is the
+    searcher's and kalibrate's: ``"torch"`` (the default) the cell search
+    on ``device``, ``"numpy"`` the float64 host chain (with ``batch=False``
+    too, nothing runs on a device). ``engine_every`` is the engine's
+    cadence in input blocks: larger values amortize each cycle's fixed
+    cost at the price of feedback-loop lag (20 ~ one cycle per 104 ms of
+    signal). ``feeder="native"`` runs the sample feeder in C++
     (tracker/native_feeder.py) on the raw bytes. ``drop_threshold`` is
     every acquired cell's (unset: CELL_DROP_THRESHOLD). ``ce_observer`` is
-    the engine's optional per-symbol CE tap (BatchTrackerEngine).
+    the data plane's optional per-symbol CE tap (BatchTrackerEngine,
+    CellTracker).
     """
 
     def __init__(self, fc_requested: float,
                  fc_programmed: Optional[float] = None,
                  fs_programmed: float = 1.92e6,
-                 initial_freq_offset: float = 0.0, engine_every: int = 1,
+                 initial_freq_offset: float = 0.0, backend: str = "torch",
+                 batch: bool = True, engine_every: int = 1,
                  feeder: str = "python",
                  on_event: Optional[Callable[[str, dict], None]] = None,
                  drop_threshold: Optional[float] = None,
                  ce_observer: Optional[tuple] = None, device=None):
+        if backend not in ("torch", "numpy"):
+            raise ValueError(f"backend must be 'torch' or 'numpy', not "
+                             f"{backend!r}")
         self.state = GlobalState(
             fc_requested=fc_requested,
             fc_programmed=fc_programmed if fc_programmed else fc_requested,
             fs_programmed=fs_programmed,
             frequency_offset=initial_freq_offset)
-        self.engine = BatchTrackerEngine(self.state, device=device)
-        self.engine.ce_observer = ce_observer
-        self.device = self.engine.device
+        self.backend = backend
+        self.ce_observer = ce_observer
+        self.engine = None
+        self.device = None
+        if batch:
+            self.engine = BatchTrackerEngine(self.state, device=device)
+            self.engine.ce_observer = ce_observer
+            self.device = self.engine.device
+        elif backend == "torch":
+            self.device = resolve_device(device)
         if feeder == "native":
-            self.feeder = NativeSampleFeeder(self.state)
+            self.feeder = NativeSampleFeeder(self.state,
+                                             emit_descriptors=batch)
         elif feeder == "python":
-            self.feeder = SampleFeeder(self.state)
+            self.feeder = SampleFeeder(self.state, emit_descriptors=batch)
         else:
             raise ValueError(f"feeder must be 'python' or 'native', not "
                              f"{feeder!r}")
         self.drop_threshold = (drop_threshold if drop_threshold is not None
                                else CELL_DROP_THRESHOLD)
         self.cells: List[TrackedCell] = []
+        self.trackers: Dict[int, CellTracker] = {}
         self.serial_num: Dict[int, int] = {}
         self.on_event = on_event or (lambda kind, info: None)
         self.feeder.request_searcher_capture()
@@ -133,7 +157,7 @@ class LTETracker:
         """
         fo = kalibrate(sample_source, self.state, ppm=ppm,
                        max_blocks=max_blocks, correction=correction,
-                       device=self.device)
+                       device=self.device, backend=self.backend)
         self.state.frequency_offset = fo
         self.on_event("kalibrate", {"frequency_offset": fo})
         return fo
@@ -156,19 +180,24 @@ class LTETracker:
     def step(self, raw_block: np.ndarray) -> None:
         """Process one block of raw uint8 IQ samples."""
         self.n_blocks += 1
-        self.engine.push_raw(raw_block)
+        if self.engine is not None:
+            self.engine.push_raw(raw_block)
 
         # Reap killed cells (reference: producer_thread.cpp:191-197).
         for cell in list(self.cells):
             if cell.kill_me:
                 self.cells.remove(cell)
+                self.trackers.pop(cell.n_id_cell, None)
                 self.on_event("cell_dropped", {"n_id_cell": cell.n_id_cell})
 
         if isinstance(self.feeder, NativeSampleFeeder):
             self.feeder.feed_bytes(raw_block, self.cells)
         else:
             self.feeder.feed(bytes_to_iq(raw_block), self.cells)
-        if self.n_blocks % self.engine_every == 0:
+        if self.engine is None:
+            for cell in self.cells:
+                self.trackers[cell.n_id_cell].process_available()
+        elif self.n_blocks % self.engine_every == 0:
             self.engine.process_all(self.cells)
 
         capbuf = self.feeder.take_searcher_capture()
@@ -185,7 +214,7 @@ class LTETracker:
         t0 = time.time()
         tracked_ids = {c.n_id_cell for c in self.cells}
         found = searcher_pass(capbuf, self.state, tracked_ids,
-                              device=self.device)
+                              device=self.device, backend=self.backend)
         for cell_res in found:
             k_factor = self.state.k_factor()
             frame_timing = np.mod(
@@ -202,6 +231,9 @@ class LTETracker:
                 frame_timing=float(frame_timing), serial_num=serial,
                 drop_threshold=self.drop_threshold)
             self.cells.append(cell)
+            if self.engine is None:
+                self.trackers[n_id] = CellTracker(cell, self.state)
+                self.trackers[n_id].ce_observer = self.ce_observer
             self.on_event("cell_acquired", {
                 "n_id_cell": n_id, "n_ports": cell.n_ports,
                 "n_rb_dl": cell.n_rb_dl, "cp_type": cell.cp_type,

@@ -153,3 +153,34 @@ def test_tables_match_jax(cp_type):
     for i, (a, b) in enumerate(pairs):
         assert a.dtype == b.dtype, i
         np.testing.assert_array_equal(a, b, err_msg=str(i))
+
+
+def test_extract_tfg_batch_matches_jax(candidates):
+    """The full 854/732-row device grid (K4's MIB mode over every row)
+    against the JAX package's extract_tfg_batch on the CPU (rtol 1e-5 +
+    atol 1e-5 * max: float32 products in another order) and against the
+    float64 host extract_tfg (timestamps within 1e-9, the grid within
+    2e-3 * max: the bound of tests/test_device_decode.py::
+    test_device_full_tfg_matches_host). A cell whose grid passes the
+    capture's end gets ok False."""
+    from lte_cell_scanner_tpu_torch.ops.tfg import extract_tfg
+
+    cap32, cells = candidates
+    cap = cap32[:, 0].astype(np.float64) + 1j * cap32[:, 1]
+    tfg, ts, ok = mib_torch.extract_tfg_batch(cells, torch.from_numpy(cap32))
+    n_ofdm = 854 if cells[0].cp_type == "normal" else 732
+    assert tfg.shape == (len(cells), n_ofdm, 72)
+    assert tfg.dtype == np.complex64 and ok.all()
+    jtfg, jts, jok = mib_jax.extract_tfg_batch(cells, cap, FC, FC, 1.92e6)
+    np.testing.assert_array_equal(ts, jts)
+    np.testing.assert_array_equal(ok, jok)
+    np.testing.assert_allclose(tfg, jtfg, rtol=1e-5,
+                               atol=1e-5 * np.abs(jtfg).max())
+    for b, c in enumerate(cells):
+        tfg_h, ts_h = extract_tfg(c, cap, FC, FC, 1.92e6)
+        np.testing.assert_allclose(ts[b], ts_h, rtol=0, atol=1e-9)
+        np.testing.assert_allclose(tfg[b], tfg_h, rtol=0,
+                                   atol=2e-3 * np.abs(tfg_h).max())
+    short = mib_torch.extract_tfg_batch(cells,
+                                        torch.from_numpy(cap32[:100000]))
+    assert short[0].shape == tfg.shape and not short[2].any()

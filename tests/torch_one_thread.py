@@ -14,3 +14,13 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """The same for the float64 host code of a module (NumPy's matrix
+    products run in OpenBLAS, whose idle threads spin): one BLAS thread."""
+    from threadpoolctl import threadpool_limits
+
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
