@@ -55,10 +55,15 @@ Phases; the script exits non-zero if any fails:
    stacked captures), profile_pipeline (64 carriers in chunks of 32),
    bench_demod at the tracker
    path's median stream launch size, 1,050 and 403,200 windows,
-   bench_tracker at 8 cells x 0.6 s, and mc_search at the settings of the
-   JAX package's MC_r05.json (ppm 10, seed 0, 50 trials at -10 and -12
-   dB): 50/50 detections and MIB decodes at -10 dB, no false cell, and at
-   least 36/50 at -12 dB; the sweep path: 64 carriers (739.0-745.3 MHz,
+   bench_tracker at 8 cells x 0.6 s (without its device-bound replay,
+   which the capacity phase takes), and mc_search at the settings
+   of the JAX package's MC_r05.json (ppm 10, seed 0, 50 trials at -10 and
+   -12 dB): 50/50 detections and MIB decodes at -10 dB, no false cell, and
+   at least 36/50 at -12 dB; mc_search --backend numpy (the float64 host
+   chain) at the JAX tests/test_mc_floor.py point (8 trials, -10 dB, seed
+   10, ppm 10): at least 5 detections and 5 MIB decodes, at most 1 false
+   cell, the torch backend's counts on the same trials beside it; the
+   sweep path: 64 carriers (739.0-745.3 MHz,
    31 hypotheses, a quarter each cells 271, 503 and 90 and an empty
    carrier, every other one on the E4000 tuner's carrier, as uint8 radio
    planes) in one batch, K1 launched once over the 64-capture stack and
@@ -109,8 +114,14 @@ Phases; the script exits non-zero if any fails:
    the end-to-end
    search on the host clock (median of 20); time the tracker's capacity run
    (96 replicated cells, 300 ms cycles, host clock ending in a sync,
-   median cycle), its stage split and its device-busy share; and the
-   host cost of a launch's device guard.
+   median cycle), its stage split and its device-busy share; its
+   device-bound capacity (tools/bench_tracker.py::device_bound: the last
+   timed cycle's demod and stats programs and MIB decode, tapped and
+   replayed from cloned arguments in CUDA graphs, eagerly and under the
+   profiler; the graph replay, the eager replay and the tapped cycle must
+   be bit-equal; the replays' launches are printed on their own line and
+   stay out of the launch counts); and the host cost of a launch's device
+   guard.
 5. The tracker as its users run it, with the launch counts set to 0 just
    before and read just after each drive: the CLI playing the tracker's
    simulated cell (2.1 s, noise power 0.01) from an .it file and from raw
@@ -194,6 +205,12 @@ TOOLS_KERNELS = ("xcorr_fold", "xcorr_fold3", "xcorr_fold3_bf16", "fd_demod",
 # point, ppm 10, seed 0; there 50/50 at -10 dB and 43/50 at -12 dB.
 MC_SNRS, MC_TRIALS, MC_REF = (-10.0, -12.0), 50, {-10.0: 50, -12.0: 43}
 MC_MIN = {-10.0: 50, -12.0: 36}
+# The float64 host chain's floor point: the JAX package's
+# tests/test_mc_floor.py at -10 dB (8 trials, seed 10, ppm 10) and its
+# bounds: at least 5 detections and 5 MIB decodes, at most 1 false cell.
+MC64_ARGS = ["--trials", "8", "--snr-db", "-10", "--seed", "10",
+             "--ppm", "10"]
+MC64_MIN, MC64_MAX_FALSE = 5, 1
 
 # The sweep path: B = 64 carriers (739.0-745.3 MHz) in one batch, and the
 # pipeline at 128 carriers (739.0-751.7 MHz) in chunks of 32; the serial
@@ -746,7 +763,10 @@ def tools_path(caps, demod_sizes) -> dict:
               f"its plain version at {demod_sizes} windows")
     except SystemExit as e:
         check(False, f"bench_demod: {e}")
-    trk = bench_tracker.measure(cells=8, seconds=0.6)
+    # Without the device-bound replay: its profiler run would slow the
+    # launches of every path timed after this one (the capacity phase
+    # takes the replay at full width, after the timings it could slow).
+    trk = bench_tracker.measure(cells=8, seconds=0.6, replay=False)
     print(json.dumps(trk))
     check(trk["min_health"] == 1.0 and trk["mib_decodes"] > 0,
           f"bench_tracker 8 cells x 0.6 s: {trk['mib_decodes']} MIB "
@@ -768,6 +788,23 @@ def tools_path(caps, demod_sizes) -> dict:
               "detections and MIB decodes"
               + (", no false cell" if snr == -10.0 else ""))
     out["mc"] = art
+    mc64 = {}
+    for backend in ("numpy", "torch"):
+        t0 = time.perf_counter()
+        mc64[backend] = mc_search.main(["--backend", backend, *MC64_ARGS])
+        mc64[backend]["seconds"] = time.perf_counter() - t0
+    print("mc_search " + " ".join(MC64_ARGS) + ": " + "; ".join(
+        f"--backend {b}: detections {r['detections']}/{r['trials']}, MIB "
+        f"{r['mib_successes']}, false cells {r['false_cells']} "
+        f"({r['seconds']:.1f} s)" for b, r in mc64.items()))
+    n64 = mc64["numpy"]
+    check(n64["backend"] == "numpy" and n64["trials"] == 8
+          and min(n64["detections"], n64["mib_successes"]) >= MC64_MIN
+          and n64["false_cells"] <= MC64_MAX_FALSE,
+          f"mc_search --backend numpy at -10 dB: at least {MC64_MIN}/8 "
+          f"detections and MIB decodes, at most {MC64_MAX_FALSE} false cell "
+          "(tests/test_mc_floor.py's bounds)")
+    out["mc64"] = mc64
     return out
 
 
@@ -2708,15 +2745,19 @@ def main() -> int:
           "the tracker CLI (--simulate --blocks 400, on the card) tracks "
           "cell 271")
 
-    # The tracker's capacity run, continuing the warm engine of phase 2.
+    # The tracker's capacity run, continuing the warm engine of phase 2;
+    # the tap keeps the last timed cycle's program arguments.
+    from lte_cell_scanner_tpu_torch.tools import bench_tracker
+
     walls, splits = [], []
-    for _ in range(TIMED_CYCLES):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        cap_run.cycle()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        splits.append(dict(cap_run.stage_s))
+    with bench_tracker.ProgramTap() as cap_tap:
+        for _ in range(TIMED_CYCLES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cap_run.cycle()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            splits.append(dict(cap_run.stage_s))
     cyc_ms = float(np.median(walls))
     cells_rt = CAP_CELLS * cap_run.signal_s / (cyc_ms / 1e3)
     print(f"tracker capacity: {CAP_CELLS} cells x {CHUNK_MS:.0f} ms cycles: "
@@ -2728,6 +2769,31 @@ def main() -> int:
           "for a device result carries the wait): " + ", ".join(
               f"{lb} {np.median([sp.get(lb, 0.0) for sp in splits]) * 1e3:.3f}"
               for lb in labels))
+    # The device-bound capacity: the last timed cycle replayed without
+    # the host (CUDA graphs), eagerly and under the profiler.
+    t0 = time.perf_counter()
+    cap_bound = bench_tracker.device_bound(cap_tap, CAP_CELLS,
+                                           cap_run.signal_s)
+    print(f"tracker capacity, device bound ({CAP_CELLS} cells x "
+          f"{CHUNK_MS:.0f} ms, the last timed cycle replayed; "
+          f"{time.perf_counter() - t0:.1f} s): device_ms_per_cycle "
+          f"{cap_bound['device_ms_per_cycle']:.4f} (CUDA graphs), "
+          f"replay_ms_per_cycle_eager "
+          f"{cap_bound['replay_ms_per_cycle_eager']:.4f}, "
+          f"profiler_kernel_ms_per_cycle "
+          f"{cap_bound['profiler_kernel_ms_per_cycle']:.4f}, "
+          f"cells_realtime_device {cap_bound['cells_realtime_device']:.1f} "
+          f"(wall {cells_rt:.2f}), MIB batches per cycle "
+          f"{cap_bound['mib_batches_per_cycle']:.3f}")
+    eq = cap_bound["replay_bits_equal"]
+    check(all(eq.values()),
+          f"tracker capacity replay: graph vs eager vs tapped cycle bit-equal "
+          f"({eq})")
+    check(0 < cap_bound["device_ms_per_cycle"] < cyc_ms
+          and np.isfinite(cap_bound["cells_realtime_device"]),
+          f"tracker capacity, device bound: "
+          f"{cap_bound['device_ms_per_cycle']:.4f} ms per cycle, finite and "
+          f"below the {cyc_ms:.3f} ms wall")
     device_busy(cap_run.cycle, cyc_ms, warm=False)
     print(f"sweep, whole stack B={SWEEP_B}:")
     device_busy(*sweep["profile"])

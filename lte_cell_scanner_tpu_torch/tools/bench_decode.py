@@ -10,7 +10,9 @@ the program's start to the milestone, ``mib_<stage>_delta_ms`` the time
 since the previous one. The events time the device stream, and the time
 between two events includes the host's launch gaps between them. The JAX
 tool's "wins" cut has no counterpart: the window gather runs inside the
-symbol-demod kernel, before the tfg milestone.
+symbol-demod kernel, before the tfg milestone. ``--stages`` reports a
+subset of :data:`STAGES` ("full" is always timed, as the JAX tool times
+it first); each delta is then taken from the previous reported stage.
 
 Workload: one 80 ms capture (the simulator's, or ``--capture FILE.it``)
 searched on the device (scan, greedy peaks, SSS/FOE); the synced cells of
@@ -23,7 +25,7 @@ the stack (32 copies: 2 candidates each).
 
 Usage:
     python -m lte_cell_scanner_tpu_torch.tools.bench_decode [--iters 20]
-        [--batch 64] [--b-cap 32] [--device cpu]
+        [--batch 64] [--b-cap 32] [--stages full,tfg,vit] [--device cpu]
 """
 
 from __future__ import annotations
@@ -102,9 +104,13 @@ def main(argv=None) -> dict:
                    help="captures in the stacked buffer (1: one capture)")
     p.add_argument("--capture", default=None,
                    help=".it file with a capbuf record (default: simulator)")
+    p.add_argument("--stages", default=",".join(STAGES),
+                   help="comma-separated subset of the MIB milestones")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
     args = p.parse_args(argv)
+    wanted = set(args.stages.split(","))
+    stages = [st for st in STAGES if st in wanted]
 
     dev = resolve_device(args.device)
     full_f32_matmuls()
@@ -150,7 +156,7 @@ def main(argv=None) -> dict:
         lambda m: _sync_device(stack, splan, THRESH2_N_SIGMA))["full"]
     mib = timed(lambda m: mib_torch.run(stack, mplan, "hex", stages=m))
     prev = 0.0
-    for st in STAGES:
+    for st in stages:
         results[f"mib_{st}_ms"] = mib[st]
         results[f"mib_{st}_delta_ms"] = mib[st] - prev
         prev = mib[st]
@@ -167,7 +173,7 @@ def main(argv=None) -> dict:
         "replicas_agree": all(ok[i] == ok[i % n] for i in range(len(ok))),
         "cells": sorted({c.n_id_cell() for c in decoded if c.n_rb_dl >= 0}),
         "metric": "device_decode_latency_ms",
-        "value": results["mib_full_ms"],
+        "value": mib["full"],
         "unit": "ms",
         "note": ("CUDA events on the device stream; the time between two "
                  "events includes the host's launch gaps"

@@ -13,6 +13,19 @@ arithmetic is identical for any cell content; acquisition is exercised by
 the tests, not benchmarked here). Each engine cycle is timed on the host
 clock and ends in a device sync; the capacity uses the median cycle.
 
+On the card the tool also reports the device-bound capacity: the engine's
+device programs are tapped during the timed cycles (:class:`ProgramTap`),
+and one cycle's recorded arguments are replayed without the host — the
+demod and stats programs, and the MIB decode at its observed cadence
+(MIB batches per cycle) — as CUDA graphs, N replays timed with CUDA
+events, the slope between N = 8 and 32 (``device_ms_per_cycle``,
+``cells_realtime_device``, ``vs_baseline_device``). Beside it, the same
+replay without a graph (``replay_ms_per_cycle_eager``: the device time
+plus the host's launches where they do not overlap) and the summed
+device-kernel time of one eager replay under torch.profiler
+(``profiler_kernel_ms_per_cycle``). The wall, the eager replay and the
+graph replay split a cycle into host planning, host launches and device.
+
 Usage: python -m lte_cell_scanner_tpu_torch.tools.bench_tracker \
            [--cells 96] [--seconds 1.2] [--chunk-ms 300] [--device cpu]
 """
@@ -27,7 +40,9 @@ import time
 import numpy as np
 import torch
 
+from lte_cell_scanner_tpu_torch import kernels
 from lte_cell_scanner_tpu_torch.io.simulator import synthetic_capture
+from lte_cell_scanner_tpu_torch.tracker import batch_runtime as br
 from lte_cell_scanner_tpu_torch.tracker.batch_runtime import (
     BatchTrackerEngine)
 from lte_cell_scanner_tpu_torch.tracker.runtime import (LTETracker,
@@ -36,6 +51,12 @@ from lte_cell_scanner_tpu_torch.tracker.state import GlobalState, TrackedCell
 from lte_cell_scanner_tpu_torch.utils.device import resolve_device
 
 BASELINE_CELLS = 4.0
+# The engine's device programs, by the module-level names batch_runtime
+# calls them by, and what each one is in a cycle.
+PROGRAMS = {"_demod_stream": "demod", "_demod_samples": "demod",
+            "_stats": "stats", "lte_conv_decode_batch": "vit"}
+# Replay counts of the device-time slope (the JAX tool's chain lengths).
+SLOPE_REPS = (8, 32)
 
 
 def _collect_pdus(seconds: float, device):
@@ -74,9 +95,12 @@ def _collect_pdus(seconds: float, device):
 
 
 def measure(cells=96, seconds=1.2, chunk_ms=300.0, verbose=True,
-            warm_chunks=2, device=None) -> dict:
+            warm_chunks=2, device=None, replay=True) -> dict:
     """Run the capacity measurement; returns the metric dict (the same
-    payload ``main`` prints)."""
+    payload ``main`` prints). ``replay=False`` leaves out the device-bound
+    readings (:func:`device_bound`): their torch.profiler run slows the
+    process's later launches, so a caller that times more afterwards in
+    the same process skips them."""
     dev = resolve_device(device)
     pdus, raw_blocks, proto = _collect_pdus(seconds, dev)
     n_sym_s = proto.n_symb_dl * 2 * 1000
@@ -117,17 +141,19 @@ def measure(cells=96, seconds=1.2, chunk_ms=300.0, verbose=True,
     fed = warm
     cycle_walls = []
     # Full chunks only, each cycle timed separately: the capacity uses
-    # the median cycle, so one slow cycle poisons one sample.
-    while fed + chunk <= len(pdus):
-        hi = fed + chunk
-        sync()
-        t1 = time.perf_counter()
-        for c in cells:
-            c.fifo.extend(pdus[fed:hi])
-        engine.process_all(cells)
-        sync()
-        cycle_walls.append(time.perf_counter() - t1)
-        fed = hi
+    # the median cycle, so one slow cycle poisons one sample. The tap
+    # keeps the last cycle's program arguments for the device bound.
+    with ProgramTap() as tap:
+        while fed + chunk <= len(pdus):
+            hi = fed + chunk
+            sync()
+            t1 = time.perf_counter()
+            for c in cells:
+                c.fifo.extend(pdus[fed:hi])
+            engine.process_all(cells)
+            sync()
+            cycle_walls.append(time.perf_counter() - t1)
+            fed = hi
     if not cycle_walls:
         raise RuntimeError("no timed cycle: raise --seconds")
     wall_med = float(np.median(cycle_walls))
@@ -152,7 +178,286 @@ def measure(cells=96, seconds=1.2, chunk_ms=300.0, verbose=True,
         "min_health": min(c.health for c in cells),
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
+        **(device_bound(tap, M, chunk_s, verbose=verbose) if replay
+           else {}),
     }
+
+
+class ProgramTap:
+    """While active (a context manager), records the arguments and the
+    results of the engine's device programs (:data:`PROGRAMS`) as the
+    engine calls them, the newest of each kind in :attr:`rec`, and counts
+    the cycles (demod programs) and the MIB batches in :attr:`counts`.
+    The module-level names are restored on exit. A program called from
+    inside another tapped one (``_demod_samples`` runs ``_demod_stream``)
+    is recorded once, as the outer call."""
+
+    def __init__(self):
+        self.rec: dict = {}
+        self.counts = {"cycles": 0, "mib": 0}
+        self._orig: dict = {}
+        self._depth = 0
+
+    def __enter__(self) -> "ProgramTap":
+        self._orig = {name: getattr(br, name) for name in PROGRAMS}
+        for name, kind in PROGRAMS.items():
+            setattr(br, name, self._tap(name, kind, self._orig[name]))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for name, fn in self._orig.items():
+            setattr(br, name, fn)
+
+    def _tap(self, name, kind, fn):
+        def run(*args):
+            self._depth += 1
+            try:
+                out = fn(*args)
+            finally:
+                self._depth -= 1
+            if self._depth:
+                return out
+            rec = self.rec
+            if kind == "demod":
+                self.counts["cycles"] += 1
+                rec["demod"], rec["demod_out"] = args, out
+                rec["demod_fn"] = name
+                rec["demod_cycle"] = self.counts["cycles"]
+            elif kind == "stats":
+                rec["stats"], rec["stats_out"] = args, out
+                rec["stats_cycle"] = self.counts["cycles"]
+            else:
+                self.counts["mib"] += 1
+                rec["vit"], rec["vit_out"] = args[0], out
+            return out
+        return run
+
+
+def recorded_cycle(tap: ProgramTap) -> dict:
+    """The newest cycle the tap recorded, its tensors cloned: the demod
+    and stats programs' arguments and results (of the same cycle), and
+    the newest MIB batch's. Raises if the tap holds no whole cycle."""
+    rec = tap.rec
+    if "demod" not in rec or rec.get("stats_cycle") != rec["demod_cycle"]:
+        raise RuntimeError("bench_tracker: the tap holds no cycle with both "
+                           "a demod and a stats program")
+
+    def clone(v):
+        if isinstance(v, torch.Tensor):
+            return v.clone()
+        if isinstance(v, tuple):
+            return tuple(clone(a) for a in v)
+        return v
+
+    keep = ("demod", "demod_out", "demod_fn", "stats", "stats_out", "vit",
+            "vit_out")
+    return {k: clone(rec[k]) for k in keep if k in rec}
+
+
+def replay_cycle(rec: dict) -> dict:
+    """Eager replay of one recorded cycle's device programs: the demod
+    program on its arguments, then the stats program on the replayed raw
+    CE rows (as the engine feeds it) and its other recorded arguments.
+    Returns the programs' results under the keys of
+    :func:`tapped_results` (without "vit")."""
+    demod = getattr(br, rec["demod_fn"])
+    flat, ce = demod(*rec["demod"])
+    flat2, td_hist = br._stats(ce, *rec["stats"][1:])
+    return {"demod": flat, "ce": ce, "stats": flat2, "td_hist": td_hist}
+
+
+def replay_mib(rec: dict) -> dict:
+    """Eager replay of the recorded MIB batch's decode."""
+    return {"vit": br.lte_conv_decode_batch(rec["vit"])}
+
+
+def tapped_results(rec: dict) -> dict:
+    """The results the engine's programs returned in the recorded cycle."""
+    out = {"demod": rec["demod_out"][0], "ce": rec["demod_out"][1],
+           "stats": rec["stats_out"][0], "td_hist": rec["stats_out"][1]}
+    if "vit_out" in rec:
+        out["vit"] = rec["vit_out"]
+    return out
+
+
+def same_bits(a: dict, b: dict) -> bool:
+    """Whether every tensor of ``a`` has the bits of ``b``'s under the
+    same key (NaN included)."""
+    def bits(t):
+        return t.detach().contiguous().reshape(-1).view(torch.uint8)
+
+    return all(a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+               and torch.equal(bits(a[k]), bits(b[k])) for k in a)
+
+
+def _capture(fn, what: str):
+    """fn captured in a CUDA graph after three warm-up calls on a side
+    stream (which also make the tables, builds and caches that fn needs
+    on first use). Returns (graph, its static outputs, the wrapper
+    launches the capture made: the graph's kernels). Raises with the
+    reason when the capture fails."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            out = fn()
+    except Exception as e:
+        raise RuntimeError(f"bench_tracker: the {what} cannot be captured "
+                           f"in a CUDA graph: {e}") from e
+    launched = {k: n - before[k] for k, n in kernels.LAUNCHES.items()
+                if n != before[k]}
+    return graph, out, launched
+
+
+def _slope_ms(run, trials: int = 3) -> float:
+    """Device ms per call of ``run(n)`` (n calls): CUDA events around n =
+    SLOPE_REPS calls, the slope between the two, median of ``trials``."""
+    lo, hi = SLOPE_REPS
+    run(2)
+    slopes = []
+    for _ in range(trials):
+        ms = {}
+        for n in (lo, hi):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            run(n)
+            end.record()
+            end.synchronize()
+            ms[n] = start.elapsed_time(end)
+        slopes.append((ms[hi] - ms[lo]) / (hi - lo))
+    return float(np.median(slopes))
+
+
+def _profiled_kernel_ms(fn) -> float:
+    """Summed device time (kernels and copies) of one call of fn under
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def device_bound(tap: ProgramTap, cells: int, cycle_signal_s: float,
+                 verbose: bool = True) -> dict:
+    """The device-bound capacity from the newest cycle ``tap`` recorded:
+    its demod + stats programs, and the MIB decode at the observed
+    cadence (``mib_batches_per_cycle``), replayed from cloned arguments
+    as CUDA graphs (``device_ms_per_cycle``), eagerly
+    (``replay_ms_per_cycle_eager``) and once eagerly under torch.profiler,
+    last (``profiler_kernel_ms_per_cycle``). ``replay_bits_equal`` holds
+    the graph replay against the eager one and both against the tapped
+    results, to the bit. The replays' kernel launches do not enter
+    :data:`kernels.LAUNCHES` (which counts a path's real calls); they are
+    returned as ``replay_launches``. Empty on the CPU, as when the tap
+    recorded no cycle."""
+    if "demod" not in tap.rec or \
+            tap.rec["demod"][0].device.type != "cuda":
+        return {}
+    # No program writes an input in place (_stats returns the new ac_td
+    # history beside the one it reads), so every replay reads the same
+    # cloned arguments.
+    rec = recorded_cycle(tap)
+    mib_rate = tap.counts["mib"] / max(tap.counts["cycles"], 1)
+    with_mib = "vit" in rec and tap.counts["mib"] > 0
+    tapped = tapped_results(rec)
+    saved = dict(kernels.LAUNCHES)
+    try:
+        eager = replay_cycle(rec)
+        g_cyc, g_cyc_out, per_cyc = _capture(lambda: replay_cycle(rec),
+                                             "demod and stats programs")
+        graphs = [(g_cyc, g_cyc_out, "cycle")]
+        if with_mib:
+            eager.update(replay_mib(rec))
+            g_vit, g_vit_out, per_vit = _capture(lambda: replay_mib(rec),
+                                                 "MIB decode")
+            graphs.append((g_vit, g_vit_out, "mib"))
+        replays = {"cycle": 0, "mib": 0}
+
+        def graph_run(g, key):
+            def run(n):
+                for _ in range(n):
+                    g.replay()
+                replays[key] += n
+            return run
+
+        graph_out = {}
+        for g, out, key in graphs:
+            graph_run(g, key)(1)
+            graph_out.update(out)
+        torch.cuda.synchronize()
+        equal = {"eager_vs_tapped": same_bits(eager, tapped),
+                 "graph_vs_eager": same_bits(graph_out, eager),
+                 "graph_vs_tapped": same_bits(graph_out, tapped)}
+
+        def eager_run(fn):
+            def run(n):
+                for _ in range(n):
+                    fn(rec)
+            return run
+
+        graph_ms = _slope_ms(graph_run(g_cyc, "cycle"))
+        eager_ms = _slope_ms(eager_run(replay_cycle))
+        if with_mib:
+            graph_ms += _slope_ms(graph_run(g_vit, "mib")) * mib_rate
+            eager_ms += _slope_ms(eager_run(replay_mib)) * mib_rate
+        # Last: a profiled run slows the launches after it.
+        prof_ms = _profiled_kernel_ms(lambda: replay_cycle(rec))
+        if with_mib:
+            prof_ms += _profiled_kernel_ms(lambda: replay_mib(rec)) \
+                * mib_rate
+    finally:
+        eager_launches = {k: n - saved[k] for k, n in kernels.LAUNCHES.items()
+                          if n != saved[k]}
+        kernels.LAUNCHES.update(saved)
+    # Each replay of a graph launches the kernels its capture recorded;
+    # the captures' own wrapper calls launched nothing.
+    captured = [(per_cyc, replays["cycle"])]
+    if with_mib:
+        captured.append((per_vit, replays["mib"]))
+    graph_launches = {}
+    for per, n_rep in captured:
+        for k, n in per.items():
+            graph_launches[k] = graph_launches.get(k, 0) + n * n_rep
+            eager_launches[k] -= n
+    cells_dev = cells * cycle_signal_s / (graph_ms / 1e3)
+    out = {
+        "device_ms_per_cycle": graph_ms,
+        "cells_realtime_device": cells_dev,
+        "vs_baseline_device": cells_dev / BASELINE_CELLS,
+        "replay_ms_per_cycle_eager": eager_ms,
+        "profiler_kernel_ms_per_cycle": prof_ms,
+        "mib_batches_per_cycle": mib_rate,
+        "replay_bits_equal": equal,
+        "replay_launches": {"graph": graph_launches,
+                            "eager": eager_launches},
+    }
+    if verbose:
+        print(f"# device bound: {graph_ms:.4f} ms per cycle in CUDA graphs "
+              f"({cells_dev:.1f} cells in realtime), eager replay "
+              f"{eager_ms:.4f} ms, profiler kernels {prof_ms:.4f} ms; "
+              f"{mib_rate:.3f} MIB batches per cycle; bits equal {equal}",
+              flush=True)
+        print("# replay launches (not in kernels.LAUNCHES): graph "
+              + ", ".join(f"{k} {n}" for k, n in graph_launches.items())
+              + "; eager "
+              + ", ".join(f"{k} {n}" for k, n in eager_launches.items()),
+              flush=True)
+    return out
 
 
 def main(argv=None) -> dict:

@@ -56,7 +56,9 @@ def main(argv=None) -> dict:
     llr_tl = torch.from_numpy(llrs32).to(dev).transpose(1, 2).reshape(
         args.batch, 10, 12).permute(1, 2, 0).contiguous()
 
-    results = {"batch": args.batch,
+    # "backend": the device type the decoders ran on (the JAX tool's
+    # jax.default_backend()).
+    results = {"batch": args.batch, "backend": dev.type,
                "device": (torch.cuda.get_device_name(dev)
                           if dev.type == "cuda" else "cpu")}
     for key, fn in (("plain", viterbi.viterbi_tl_plain),

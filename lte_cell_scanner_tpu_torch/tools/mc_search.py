@@ -11,12 +11,16 @@ sync; Matlab/pss_search_final.m:78-127, 341-363).
 
 The trials are drawn exactly as the JAX package's tools/mc_search.py
 draws them (the same simulator, the same rng call order), so one seed gives
-the same trials; the search is the port's ``cell_search``, on the CUDA card
-unless ``--device cpu`` asks for the kernels' plain versions.
+the same trials. The search is the port's ``cell_search``: with
+``--backend torch`` (the default) on the CUDA card unless ``--device cpu``
+asks for the kernels' plain versions; with ``--backend numpy`` the float64
+host chain, which needs no card and leaves ``--device`` unused. (The JAX
+tool's functions default to its host chain, ``backend="numpy"``; the
+port's entry points run on the card unless asked otherwise.)
 
 Usage:
     python -m lte_cell_scanner_tpu_torch.tools.mc_search --trials 20 \
-        --snr-db -5 [--fading] [--device cpu] [--seed 1]
+        --snr-db -5 [--fading] [--backend numpy] [--device cpu] [--seed 1]
 """
 
 from __future__ import annotations
@@ -82,7 +86,7 @@ class McStats:
 
 
 def run_trial(rng: np.random.Generator, snr_db: Optional[float],
-              fading: bool = False, device=None,
+              fading: bool = False, backend: str = "torch", device=None,
               ppm: float = 30.0, fc: float = 739e6,
               n_subframes: int = 80, load_factor: Optional[float] = None,
               verbose: int = 0) -> TrialResult:
@@ -117,7 +121,8 @@ def run_trial(rng: np.random.Generator, snr_db: Optional[float],
     f_search_set = (np.arange(-n_extra, n_extra + 1) * 5e3)
 
     t0 = time.perf_counter()
-    cells = cell_search(rx, fc, f_search_set=f_search_set, device=device)
+    cells = cell_search(rx, fc, f_search_set=f_search_set, device=device,
+                        backend=backend)
     elapsed = time.perf_counter() - t0
 
     want = 3 * n_id_1 + n_id_2
@@ -142,13 +147,13 @@ def run_trial(rng: np.random.Generator, snr_db: Optional[float],
 
 
 def run_mc(trials: int, snr_db: Optional[float], fading: bool = False,
-           device=None, seed: int = 0, ppm: float = 30.0,
-           verbose: int = 1) -> McStats:
+           backend: str = "torch", device=None, seed: int = 0,
+           ppm: float = 30.0, verbose: int = 1) -> McStats:
     rng = np.random.default_rng(seed)
     stats = McStats()
     for _ in range(trials):
-        stats.add(run_trial(rng, snr_db, fading=fading, device=device,
-                            ppm=ppm, verbose=verbose))
+        stats.add(run_trial(rng, snr_db, fading=fading, backend=backend,
+                            device=device, ppm=ppm, verbose=verbose))
     return stats
 
 
@@ -166,7 +171,7 @@ def wilson_lower(k: int, n: int, z: float = 1.96) -> float:
 
 
 def run_sweep_artifact(snrs, trials: int, ppm: float = 10.0,
-                       seed: int = 0, device=None,
+                       seed: int = 0, backend: str = "torch", device=None,
                        fading: bool = False, path: Optional[str] = None,
                        verbose: int = 1) -> dict:
     """Run the SNR sweep and emit the committed statistical-floor
@@ -176,20 +181,23 @@ def run_sweep_artifact(snrs, trials: int, ppm: float = 10.0,
     vs the reference's documented sync ~-12 dB / MIB ~-10 dB AWGN
     floors (src/searcher.cpp:99-104; derivation
     Matlab/pss_search_final.m:207-255). Checkpoints after every SNR
-    point so an interrupted sweep keeps its finished points."""
+    point so an interrupted sweep keeps its finished points. The numpy
+    backend searches on no device: ``device`` stays unused."""
     from lte_cell_scanner_tpu_torch.utils.device import resolve_device
 
-    dev = resolve_device(device)
+    dev = device if backend == "numpy" else resolve_device(device)
     art = {"metric": "mc_detection_floor",
            "trials_per_point": trials, "ppm": ppm, "seed": seed,
-           "device": _device_name(dev), "fading": fading,
+           "backend": backend,
+           "device": "cpu" if backend == "numpy" else _device_name(dev),
+           "fading": fading,
            "reference": "src/searcher.cpp:99-104 (sync ~-12 dB AWGN, "
                          "MIB ~-10 dB); Matlab/pss_search_final.m",
            "points": []}
     for snr in snrs:
         t0 = time.perf_counter()
-        st = run_mc(trials, snr, fading=fading, device=dev,
-                    seed=seed, ppm=ppm, verbose=0)
+        st = run_mc(trials, snr, fading=fading, backend=backend,
+                    device=dev, seed=seed, ppm=ppm, verbose=0)
         pt = {"snr_db": snr, "trials": st.trials,
               "detections": st.detections,
               "mib_successes": st.mib_successes,
@@ -240,6 +248,10 @@ def main(argv=None) -> dict:
                          "artifact (e.g. MC_r05.json) with Wilson 95%% "
                          "bounds, checkpointed per SNR point")
     ap.add_argument("--fading", action="store_true")
+    ap.add_argument("--backend", default="torch",
+                    choices=["torch", "numpy"],
+                    help="torch: the device chain on --device; numpy: the "
+                         "float64 host chain (no card)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; cpu runs "
                          "the kernels' plain versions)")
@@ -250,15 +262,17 @@ def main(argv=None) -> dict:
     if args.snr_sweep:
         snrs = [float(s) for s in args.snr_sweep.split(",")]
         art = run_sweep_artifact(snrs, args.trials, ppm=args.ppm,
-                                 seed=args.seed, device=args.device,
+                                 seed=args.seed, backend=args.backend,
+                                 device=args.device,
                                  fading=args.fading, path=args.artifact)
         print(json.dumps(art))
         return art
 
     stats = run_mc(args.trials, args.snr_db, fading=args.fading,
-                   device=args.device, seed=args.seed, ppm=args.ppm)
+                   backend=args.backend, device=args.device, seed=args.seed,
+                   ppm=args.ppm)
     print(stats.summary())
-    return dataclasses.asdict(stats)
+    return {"backend": args.backend, **dataclasses.asdict(stats)}
 
 
 if __name__ == "__main__":

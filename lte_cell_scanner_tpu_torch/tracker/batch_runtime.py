@@ -1112,10 +1112,18 @@ def _segment_sum(x, seg_id, n_seg: int):
     order), each segment's rows added in their order, as index_add_ does
     on the CPU. On CUDA index_add_ adds with atomics in no fixed order;
     this sum's bits depend only on the segment's rows, whatever the device
-    or the other segments of the call (a cycle split over devices)."""
+    or the other segments of the call (a cycle split over devices).
+
+    Nothing is read back to the host, so a CUDA graph can capture the
+    call: the segment lengths are integer counts added on the device
+    (exact in any order; bincount would read their maximum back), and
+    segment_reduce skips its checks of them (``unsafe``), which would."""
     order = torch.sort(seg_id, stable=True).indices
-    lengths = torch.bincount(seg_id, minlength=n_seg)
-    return torch.segment_reduce(x[order], "sum", lengths=lengths, axis=0)
+    lengths = torch.zeros(n_seg, dtype=seg_id.dtype,
+                          device=seg_id.device).scatter_add_(
+        0, seg_id, torch.ones_like(seg_id))
+    return torch.segment_reduce(x[order], "sum", lengths=lengths, axis=0,
+                                unsafe=True)
 
 
 def _stats(ce_dev, carry_vals, tri, pl, seg_id, emit_idx, carry_idx,

@@ -41,12 +41,14 @@ CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
 _LIB: Optional[ctypes.CDLL] = None
 
 
-def build_native() -> Path:
+def build_native(force: bool = False) -> Path:
     """Compile ``native/feeder.cpp`` into ``build/native/libfeeder.so``
-    unless the library is newer than the source; returns its path. Raises
-    RuntimeError naming what failed."""
-    if LIB_PATH.exists() and (LIB_PATH.stat().st_mtime
-                              >= SOURCE.stat().st_mtime):
+    unless the library is newer than the source (or ``force``); returns
+    its path. Raises RuntimeError naming what failed. A library this
+    process has already loaded stays loaded: a rebuild serves the next
+    process."""
+    if not force and LIB_PATH.exists() and (LIB_PATH.stat().st_mtime
+                                            >= SOURCE.stat().st_mtime):
         return LIB_PATH
     cxx = shutil.which("g++")
     if cxx is None:

@@ -5,6 +5,7 @@ or the JAX package.
 """
 
 import ast
+import importlib
 import pathlib
 
 import numpy as np
@@ -58,7 +59,9 @@ def test_table_full_fallback_matches_jax(monkeypatch):
     """A full peak table (MAX_PEAKS lowered to 1) sends the search down the
     host peak search over the device's scan tables; the cells still equal
     the JAX package's."""
-    from lte_cell_scanner_tpu_torch.search import cell_search as cs
+    # The module (the package's ``cell_search`` is the function).
+    cs = importlib.import_module(
+        "lte_cell_scanner_tpu_torch.search.cell_search")
 
     calls = []
     host_peak_search = cs.peak_search
@@ -96,7 +99,9 @@ def test_table_full_redo_stays_on_device(monkeypatch):
     from lte_cell_scanner_tpu.search.cell_search import detection_threshold
     from lte_cell_scanner_tpu_torch.ops import peak as host_peak
     from lte_cell_scanner_tpu_torch.ops import peak_torch
-    from lte_cell_scanner_tpu_torch.search import cell_search as cs
+    # The module (the package's ``cell_search`` is the function).
+    cs = importlib.import_module(
+        "lte_cell_scanner_tpu_torch.search.cell_search")
 
     def host_search(*args, **kwargs):
         raise AssertionError("the host peak_search ran")

@@ -8,6 +8,7 @@ records field by field, the CLI's result table line for line.
 """
 
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -29,10 +30,12 @@ from lte_cell_scanner_tpu_torch.io.simulator import synthetic_capture
 from lte_cell_scanner_tpu_torch.models.cell import Cell
 from lte_cell_scanner_tpu_torch.models.rs import RSDL
 from lte_cell_scanner_tpu_torch.ops import chanest, pbch, sync, tfg, xcorr
-from lte_cell_scanner_tpu_torch.search import cell_search as cs
 from lte_cell_scanner_tpu_torch.search import cli
 from lte_cell_scanner_tpu_torch.utils import dsp
 from torch_one_thread import _one_blas_thread, _one_torch_thread  # noqa: F401
+
+# The module (the package's ``cell_search`` is the function).
+cs = importlib.import_module("lte_cell_scanner_tpu_torch.search.cell_search")
 
 FC, FS = 739e6, 1.92e6
 FSET = np.arange(-2, 3) * 5e3

@@ -168,6 +168,20 @@ def test_build_leaves_native_dir_untouched(tmp_path, monkeypatch):
     assert native_feeder.SOURCE.parent == COMMITTED.parent
 
 
+def test_build_native_force(tmp_path, monkeypatch):
+    """A library newer than the source is kept; force=True (the JAX
+    build_native's option) compiles it again all the same."""
+    monkeypatch.setattr(native_feeder, "LIB_PATH", tmp_path / "libfeeder.so")
+    monkeypatch.setattr(native_feeder, "BUILD_DIR", tmp_path)
+    lib = native_feeder.build_native()
+    first = lib.stat().st_ino, lib.stat().st_mtime_ns
+    assert native_feeder.build_native() == lib
+    assert (lib.stat().st_ino, lib.stat().st_mtime_ns) == first
+    assert native_feeder.build_native(force=True) == lib
+    assert (lib.stat().st_ino, lib.stat().st_mtime_ns) != first
+    assert lib.stat().st_size > 0
+
+
 def test_failed_build_raises(tmp_path, monkeypatch):
     """No fallback: a build that cannot run raises, naming what failed,
     and so does the tracker that asked for it."""

@@ -6,6 +6,8 @@ decodes and false cells, frequency errors within 0.5 Hz), and the
 benchmarks' result keys and correctness checks at small sizes.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -148,6 +150,22 @@ def test_mc_search_matches_jax():
     assert mc_search.wilson_lower(49, 50) == jax_mc.wilson_lower(49, 50)
 
 
+def test_mc_search_numpy_backend_matches_jax():
+    """backend="numpy" runs the port's float64 host chain: the same trials
+    give the JAX harness's statistics field by field, exactly (the chains
+    are bit-equal copies); the CLI takes --backend numpy and reports it."""
+    got = mc_search.run_mc(trials=2, snr_db=15.0, backend="numpy", seed=7,
+                           ppm=5.0, verbose=0)
+    want = jax_mc.run_mc(trials=2, snr_db=15.0, backend="numpy", seed=7,
+                         ppm=5.0, verbose=0)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.detections == got.mib_successes == 2
+    out = mc_search.main(["--backend", "numpy", "--trials", "0"])
+    assert out["backend"] == "numpy" and out["trials"] == 0
+    with pytest.raises(SystemExit):
+        mc_search.main(["--backend", "jax"])
+
+
 @pytest.fixture(scope="module")
 def scans():
     return {layout: bench_scan.main(["--device", "cpu", "--ppm", "10",
@@ -185,7 +203,7 @@ def test_bench_scan_layouts(scans, layout):
 def test_bench_viterbi_bits():
     out = bench_viterbi.main(["--device", "cpu", "--batch", "64",
                               "--iters", "1"])
-    assert out["batch"] == 64
+    assert out["batch"] == 64 and out["backend"] == "cpu"
     assert out["plain_bits_equal"] and out["cuda_bits_equal"]
     assert out["plain_ms"] > 0 and out["cuda_ms"] > 0
 
@@ -200,6 +218,19 @@ def test_bench_decode_stages():
     assert cum == sorted(cum) and out["value"] == cum[-1]
     assert sum(out[f"mib_{st}_delta_ms"] for st in bench_decode.STAGES) \
         == pytest.approx(cum[-1])
+
+
+def test_bench_decode_stage_subset():
+    """--stages reports the named milestones only, in pipeline order, each
+    delta from the previous reported one; "full" is timed whatever."""
+    out = bench_decode.main(["--device", "cpu", "--batch", "2",
+                             "--iters", "1", "--stages", "vit,tfg,nope"])
+    assert not any(f"mib_{st}_ms" in out
+                   for st in ("tfoec", "toe", "chanest", "pbch", "llr",
+                              "full"))
+    assert out["mib_tfg_delta_ms"] == out["mib_tfg_ms"]
+    assert out["mib_vit_delta_ms"] == out["mib_vit_ms"] - out["mib_tfg_ms"]
+    assert out["value"] >= out["mib_vit_ms"] >= out["mib_tfg_ms"] > 0
 
 
 def test_bench_demod_sizes():

@@ -188,9 +188,11 @@ def test_demod_program_matches_jax(quantized):
         _close(g, w, **F16)
 
 
-def test_stats_program_matches_jax():
+def _stats_case(R=10):
+    """The stats program's seeded arguments (before n_seg) for C = 2 cells
+    of P = 2 ports and R RS rows each, and (C, P, T, E)."""
     rng = np.random.default_rng(23)
-    C, P, R, T, E = 2, 2, 10, 30, 7
+    C, P, T, E = 2, 2, 30, 7
     Cp, n_rows = C * P, C * P * 2 + C * R * P
     base = rng.standard_normal((12, 2))
     ce_dev = (base + 0.3 * rng.standard_normal((C, R, P, 12, 2))
@@ -210,6 +212,12 @@ def test_stats_program_matches_jax():
     td_hist = rng.standard_normal((Cp, 72, 12, 2)).astype(np.float32)
     args = (ce_dev, carry_vals, tri, pl, seg_id, emit_idx, carry_idx,
             td_rows, td_new, td0_rows, td0_new, td0_sp, td_hist)
+    return args, (C, P, T, E)
+
+
+def test_stats_program_matches_jax():
+    args, (C, P, T, E) = _stats_case()
+    Cp = C * P
     flat, new_h = br._stats(*(torch.from_numpy(a) for a in args), C + 1)
     jflat, jnew_h = jbr._stats_jit(*(jnp.asarray(a) for a in args),
                                    n_seg=C + 1)
@@ -220,6 +228,68 @@ def test_stats_program_matches_jax():
     for sh, g, w in zip(shapes, br._unpack(flat.numpy(), shapes),
                         jbr._unpack(jflat, shapes)):
         _close(g, w) if sh[0] == "f32" else _close(g, w, **F16)
+
+
+def _bits(t):
+    return t.contiguous().reshape(-1).view(torch.uint8).numpy()
+
+
+@pytest.mark.parametrize("n_seg", [4, 9])
+@pytest.mark.parametrize("width", [(), (12, 2)])
+def test_segment_sum_bits(n_seg, width):
+    """The capture-safe _segment_sum (counts by scatter_add_, unchecked
+    segment_reduce) gives the bits of the bincount form it replaced, on
+    random unsorted segment ids; with 9 segments some stay empty. Exact."""
+    rng = np.random.default_rng(31 + n_seg)
+    T = 200
+    x = torch.from_numpy(rng.standard_normal((T, *width)).astype(np.float32))
+    seg = torch.from_numpy(rng.integers(0, min(n_seg, 6), T))
+    got = br._segment_sum(x, seg, n_seg)
+    order = torch.sort(seg, stable=True).indices
+    want = torch.segment_reduce(x[order], "sum", axis=0,
+                                lengths=torch.bincount(seg, minlength=n_seg))
+    assert got.shape == want.shape == (n_seg, *width)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("demod_fn", ["_demod_stream", "_demod_samples"])
+def test_recorded_cycle_replays_bit_equal(demod_fn):
+    """bench_tracker's tap records one cycle's programs as the engine
+    calls them (by their module-level names); the eager replay of the
+    recorded cycle (demod, stats on the replayed CE rows, the MIB decode)
+    gives the tapped results to the bit on the CPU, and the device bound
+    is empty there."""
+    from lte_cell_scanner_tpu_torch.tools import bench_tracker as bt
+
+    args, (C, Q, K) = _demod_case(True)
+    t_args = [torch.from_numpy(a) for a in args]
+    for i in (6, 7, 8, 9, 10, 11, 12):           # index lanes
+        t_args[i] = t_args[i].long()
+    if demod_fn == "_demod_samples":
+        rng = np.random.default_rng(5)
+        S = t_args[1].shape[1]
+        t_args = [torch.from_numpy(rng.integers(
+            0, 256, (C, S, 128, 2), dtype=np.uint8))] + t_args[2:]
+    s_args, _ = _stats_case(R=4)
+    s_args = [torch.from_numpy(a) for a in s_args[1:]]
+    llr = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (5, 3, 40)).astype(np.float32))
+    originals = {name: getattr(br, name) for name in bt.PROGRAMS}
+    with bt.ProgramTap() as tap:
+        flat, ce = getattr(br, demod_fn)(*t_args)
+        br._stats(ce, *s_args, C + 1)
+        br.lte_conv_decode_batch(llr)
+    assert {name: getattr(br, name) for name in bt.PROGRAMS} == originals
+    assert tap.counts == {"cycles": 1, "mib": 1}
+    rec = bt.recorded_cycle(tap)
+    assert rec["demod_fn"] == demod_fn
+    got = bt.replay_cycle(rec)
+    got.update(bt.replay_mib(rec))
+    want = bt.tapped_results(rec)
+    assert sorted(got) == sorted(want) == ["ce", "demod", "stats",
+                                           "td_hist", "vit"]
+    assert bt.same_bits(got, want)
+    assert bt.device_bound(tap, cells=C, cycle_signal_s=0.3) == {}
 
 
 # ---------------------------------------------------------------------------

@@ -122,6 +122,20 @@ def test_scan_tables_match_jax():
         jax_xcorr.fold_start_indices(fset, n_comb, FC, FC, 1.92e6))
 
 
+def test_matlab_mode_templates_match_jax():
+    """shifted_templates(mode="matlab") (the nominal-rate shift of the
+    Matlab prototype) equals the JAX package's to 0 ulp."""
+    from lte_cell_scanner_tpu.ops import xcorr as jax_xcorr
+    from lte_cell_scanner_tpu_torch.ops import xcorr
+
+    fset = np.arange(-15, 16) * 5e3
+    got = xcorr.shifted_templates(fset, FC, 739.1e6, 1.92e6, mode="matlab")
+    np.testing.assert_array_equal(got, jax_xcorr.shifted_templates(
+        fset, FC, 739.1e6, 1.92e6, mode="matlab"))
+    assert not np.array_equal(got, xcorr.shifted_templates(
+        fset, FC, 739.1e6, 1.92e6))
+
+
 @pytest.mark.parametrize("layout,precision", [
     ("tea3", "f32"), ("tea3", "bf16"), ("tea", "bf16")])
 def test_fold_layouts_match_pallas(layout, precision):
