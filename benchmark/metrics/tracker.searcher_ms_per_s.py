@@ -1,0 +1,11 @@
+"""Host milliseconds in the searcher's passes (``LTETracker._run_searcher``,
+tracker/searcher.py) per second of signal ingested: the benchmark's span
+around each pass, over the untraced part of the window. The tracker
+keeps up with a live dongle while the layers' sum stays under 1000."""
+
+
+def read(win):
+    signal_s = win.units.get("signal_s", 0.0)
+    if "searcher" not in win.spans or not signal_s:
+        return None
+    return 1e3 * win.spans["searcher"] / signal_s
