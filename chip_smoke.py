@@ -992,10 +992,10 @@ def sweep_path(fset, close) -> dict:
 
     # The pipelined sweep at 128 x 32 against the whole stack of the same
     # 128 captures.
-    def pipe(stage_s=None):
+    def pipe():
         return pipelined_search_sweep(planes128, fcs128, fset,
                                       batch=SWEEP_PIPE[1],
-                                      fc_prog_list=fcp128, stage_s=stage_s)
+                                      fc_prog_list=fcp128)
 
     pipe()
     torch.cuda.synchronize()
@@ -1058,8 +1058,16 @@ def sweep_path(fset, close) -> dict:
         for b in sub], SWEEP_REPS)
     t_whole = host_ms_n(whole, SWEEP_REPS)
     t_pipe = host_ms_n(pipe, SWEEP_REPS)
-    stages = {}
-    pipe(stages)
+    from lte_cell_scanner_tpu_torch.utils.profiling import TRACER
+
+    TRACER.reset()
+    TRACER.enable()
+    try:
+        pipe()
+    finally:
+        TRACER.disable()
+    stages = {k: v["seconds"] for k, v in TRACER.snapshot()["spans"].items()
+              if k.startswith("pipe.")}
     out["ms_per_carrier"] = dict(
         serial=t_serial[0] / len(sub), whole=t_whole[0] / B,
         pipelined=t_pipe[0] / SWEEP_PIPE[0])

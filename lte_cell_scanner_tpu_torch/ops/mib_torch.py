@@ -52,7 +52,8 @@ from lte_cell_scanner_tpu_torch.ops.pbch import N_RB_DL_TABLE, PHICH_RES_TABLE
 from lte_cell_scanner_tpu_torch.ops.sync_torch import (cabs2, cconj, cmul,
                                                        rot_pair)
 from lte_cell_scanner_tpu_torch.ops.tfg import CN, symbol_timestamps_batch
-from lte_cell_scanner_tpu_torch.utils.device import HostFetch, upload
+from lte_cell_scanner_tpu_torch.utils.device import (HostFetch, to_host,
+                                                     upload)
 from lte_cell_scanner_tpu_torch.utils.dsp import interp1
 
 _PORT_CFGS = (1, 2, 4)
@@ -866,7 +867,7 @@ def extract_tfg_batch(cells: List[Cell], cap: torch.Tensor,
     plan = mib_plan(cells, cap.shape[0] if n_cap is None else n_cap,
                     cap_bases)
     out = fd_demod(cap, *fd_demod_inputs(plan, cap.device, full_grid=True))
-    out = out.view(len(cells), plan.n_ofdm, 72, 2).cpu().numpy()
+    out = to_host(out.view(len(cells), plan.n_ofdm, 72, 2))
     k = np.array([(c.fc_requested - c.freq_fine) / c.fc_programmed
                   for c in cells])
     ts = symbol_timestamps_batch(
@@ -883,7 +884,7 @@ def finish_mib_batch(pending: MibPending) -> List[Cell]:
         return []
     plan = pending.plan
     o = (pending.out.wait() if isinstance(pending.out, HostFetch)
-         else {k: v.cpu().numpy() for k, v in pending.out.items()})
+         else {k: to_host(v) for k, v in pending.out.items()})
     residual_f, ok, bits = o["residual_f"], o["ok"], o["bits"]
     res: List[Cell] = []
     for b, cell in enumerate(plan.cells[:len(residual_f)]):

@@ -19,6 +19,7 @@ import torch
 
 from lte_cell_scanner_tpu_torch.constants import HALF_FRAME, RX_CUTOFF
 from lte_cell_scanner_tpu_torch.models.cell import Cell
+from lte_cell_scanner_tpu_torch.utils.device import to_host
 from lte_cell_scanner_tpu_torch.utils.dsp import chi2cdf_inv
 
 MAX_PEAKS = 64  # table size of a first pass; real captures stay far below
@@ -103,7 +104,7 @@ def peak_search_device(packed: torch.Tensor, single: torch.Tensor,
         working = torch.where(valid[:, None, None], w, working)
         done = ~valid
         if early_exit and (trip + 1) % _SYNC_EVERY == 0 \
-                and bool(done.all()):
+                and bool(to_host(done.all())):
             break
     return out
 
@@ -121,9 +122,9 @@ def redo_full_tables(tables: np.ndarray, packed: torch.Tensor,
     full = np.flatnonzero(tables[:, -1, 0] > 0.0)
     if len(full) and tables.shape[1] < PEAK_BOUND:
         idx = torch.from_numpy(full).to(packed.device)
-        redo = peak_search_device(packed[idx], single[idx], r_norm,
-                                  ds_comb_arm,
-                                  max_peaks=PEAK_BOUND).cpu().numpy()
+        redo = to_host(peak_search_device(packed[idx], single[idx],
+                                          r_norm, ds_comb_arm,
+                                          max_peaks=PEAK_BOUND))
         for k, b in enumerate(full):
             out[b] = redo[k]
     return out

@@ -32,7 +32,8 @@ from lte_cell_scanner_tpu_torch.constants import FS_LTE, HALF_FRAME
 from lte_cell_scanner_tpu_torch.models.cell import Cell
 from lte_cell_scanner_tpu_torch.models.pss import pss_fd
 from lte_cell_scanner_tpu_torch.models.sss import sss_fd_all
-from lte_cell_scanner_tpu_torch.utils.device import HostFetch, upload
+from lte_cell_scanner_tpu_torch.utils.device import (HostFetch, to_host,
+                                                     upload)
 from lte_cell_scanner_tpu_torch.utils.dsp import wrap
 
 N_REP = 16   # PSS repetitions in an 80 ms capture (ceil(153600/9600))
@@ -459,7 +460,7 @@ def finish_sync_batch(pending: SyncPending) -> List[Cell]:
         return []
     plan = pending.plan
     o = (pending.out.wait() if isinstance(pending.out, HostFetch)
-         else {k: v.cpu().numpy() for k, v in pending.out.items()})
+         else {k: to_host(v) for k, v in pending.out.items()})
     res: List[Cell] = []
     for b, cell in enumerate(pending.cells):
         c = dataclasses.replace(cell)

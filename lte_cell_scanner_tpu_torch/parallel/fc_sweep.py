@@ -48,7 +48,9 @@ from lte_cell_scanner_tpu_torch.ops.xcorr_torch import xcorr_core_batch
 from lte_cell_scanner_tpu_torch.search.cell_search import dedup
 from lte_cell_scanner_tpu_torch.utils.device import (HostFetch,
                                                      full_f32_matmuls,
-                                                     resolve_device, upload)
+                                                     resolve_device, to_host,
+                                                     upload)
+from lte_cell_scanner_tpu_torch.utils.profiling import TRACER
 
 # (sweep, mesh devices, shard bounds) -> [(banks, bank_idx) per shard]
 _DEV_BANK_CACHE: dict = {}
@@ -325,7 +327,7 @@ class StackScan:
         scan's device (:func:`~lte_cell_scanner_tpu_torch.ops.peak_torch.
         redo_full_tables`)."""
         if tables is None:
-            tables = self.tables.cpu().numpy()
+            tables = to_host(self.tables)
         return redo_full_tables(tables, self.packed, self.single,
                                 self.r_norm, self.ds_comb_arm)
 
@@ -339,9 +341,15 @@ def scan_shards(caps: Sequence[torch.Tensor], bounds, fc_list, fcp,
     the sweep: one scan launch per shard, every shard dispatched before
     any is read. The peak loop runs its full trip count and never waits
     for the card."""
-    inputs, n_comb_xc, n_comb_sp = shard_inputs(
-        fc_list, fcp, f_search_set, fs_programmed, caps[0].shape[2],
-        [c.device for c in caps], bounds, share_banks, non_blocking)
+    inputs = shard_inputs(fc_list, fcp, f_search_set, fs_programmed,
+                          caps[0].shape[2], [c.device for c in caps], bounds,
+                          share_banks, non_blocking)
+    return _scan(caps, *inputs, ds_comb_arm, max_peaks)
+
+
+def _scan(caps, inputs, n_comb_xc, n_comb_sp, ds_comb_arm, max_peaks):
+    """The launches of :func:`scan_shards` on the inputs of
+    :func:`shard_inputs`."""
     r_norm = r_th1_normalized(n_comb_xc, ds_comb_arm)
     scans = []
     for cap, (banks, bank_idx, starts) in zip(caps, inputs):
@@ -444,12 +452,14 @@ def sharded_search_sweep(capbufs, fc_list: Sequence[float],
     """
     devs = sweep_devices(capbufs, device)
     bounds = shard_bounds(len(fc_list), len(devs))
-    return search_shard_stacks(
-        shard_stacks(capbufs, devs, bounds), fc_list, f_search_set,
-        fs_programmed, thresh2_n_sigma, dedup_cells, fc_prog_list,
-        share_banks, interp)
+    with TRACER.span("sweep.stack"):
+        caps = shard_stacks(capbufs, devs, bounds)
+    return search_shard_stacks(caps, fc_list, f_search_set, fs_programmed,
+                               thresh2_n_sigma, dedup_cells, fc_prog_list,
+                               share_banks, interp)
 
 
+@TRACER.traced("sweep")
 def search_shard_stacks(caps: Sequence[torch.Tensor],
                         fc_list: Sequence[float], f_search_set: np.ndarray,
                         fs_programmed: float = 1.92e6,
@@ -464,7 +474,9 @@ def search_shard_stacks(caps: Sequence[torch.Tensor],
     dispatched, then every shard's tables read, then every shard's sync
     and MIB programs dispatched before any is collected, so that the
     devices run side by side. The cells are merged in capture order, then
-    deduplicated once."""
+    deduplicated once. The tracer's span ``sweep`` holds its stages
+    (``sweep.plan`` ... ``sweep.dedup``); :func:`sharded_search_sweep`'s
+    ``sweep.stack`` comes before it."""
     if thresh2_n_sigma is None:
         thresh2_n_sigma = THRESH2_N_SIGMA
     full_f32_matmuls()
@@ -472,24 +484,34 @@ def search_shard_stacks(caps: Sequence[torch.Tensor],
     bounds = shard_bounds(len(fc_list), len(caps))
     fcp = list(fc_list) if fc_prog_list is None else list(fc_prog_list)
     f_search_set = np.asarray(f_search_set, dtype=np.float64)
-    scans = scan_shards(caps, bounds, list(fc_list), fcp, f_search_set,
-                        fs_programmed, share_banks=share_banks)
-    tables = shard_tables(scans)
-    del scans                   # the scan tables go before the decode
-    decs = [StackDecode(tables_to_peaks(tab, fc_list[lo:hi], f_search_set,
-                                        fs_programmed,
-                                        fc_prog_list=fcp[lo:hi]),
-                        flat_stack(cap), n_cap, thresh2_n_sigma, interp)
-            for tab, cap, (lo, hi) in zip(tables, caps, bounds)]
-    for dec in decs:
-        dec.dispatch_sync()
-    for dec in decs:
-        dec.collect_sync()
-    for dec in decs:
-        dec.dispatch_mib()
+    with TRACER.span("sweep.plan"):
+        inputs = shard_inputs(list(fc_list), fcp, f_search_set,
+                              fs_programmed, n_cap,
+                              [c.device for c in caps], bounds, share_banks)
+    with TRACER.span("sweep.scan"):
+        scans = _scan(caps, *inputs, DS_COMB_ARM, MAX_PEAKS)
+    with TRACER.span("sweep.tables"):
+        tables = shard_tables(scans)
+        del scans               # the scan tables go before the decode
+        peaks = [tables_to_peaks(tab, fc_list[lo:hi], f_search_set,
+                                 fs_programmed, fc_prog_list=fcp[lo:hi])
+                 for tab, (lo, hi) in zip(tables, bounds)]
+    with TRACER.span("sweep.sync"):
+        decs = [StackDecode(p, flat_stack(cap), n_cap, thresh2_n_sigma,
+                            interp) for p, cap in zip(peaks, caps)]
+        for dec in decs:
+            dec.dispatch_sync()
+        for dec in decs:
+            dec.collect_sync()
     per_cap: List[List[Cell]] = [[] for _ in fc_list]
-    for dec, (lo, _) in zip(decs, bounds):
-        for b, c in dec.collect_mib():
-            per_cap[lo + b].append(c)
+    with TRACER.span("sweep.mib"):
+        for dec in decs:
+            dec.dispatch_mib()
+        for dec, (lo, _) in zip(decs, bounds):
+            for b, c in dec.collect_mib():
+                per_cap[lo + b].append(c)
     good = [c for cells in per_cap for c in cells]
-    return per_cap, (dedup(good) if dedup_cells else good)
+    if not dedup_cells:
+        return per_cap, good
+    with TRACER.span("sweep.dedup"):
+        return per_cap, dedup(good)

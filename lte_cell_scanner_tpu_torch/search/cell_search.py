@@ -38,8 +38,9 @@ from lte_cell_scanner_tpu_torch.ops.tfg import extract_tfg, tfoec
 from lte_cell_scanner_tpu_torch.ops.xcorr import xcorr_pss
 from lte_cell_scanner_tpu_torch.ops.xcorr_torch import scan_plan, xcorr_core
 from lte_cell_scanner_tpu_torch.utils.device import (full_f32_matmuls,
-                                                     resolve_device)
+                                                     resolve_device, to_host)
 from lte_cell_scanner_tpu_torch.utils.dsp import chi2cdf_inv, matlab_range
+from lte_cell_scanner_tpu_torch.utils.profiling import TRACER
 
 
 def generate_search_sets(freq_start: float, freq_end: float, ppm: float):
@@ -98,46 +99,57 @@ def cell_search(
     if f_search_set is None:
         f_search_set = np.array([0.0])
     f_search_set = np.asarray(f_search_set, dtype=np.float64)
-    capbuf = np.asarray(capbuf, dtype=np.complex128)
     if backend == "numpy":
-        return _host_search(capbuf, fc_requested, fc_programmed,
-                            fs_programmed, f_search_set, ds_comb_arm,
-                            thresh2_n_sigma, interp, verbose)
-    dev = resolve_device(device)
-    full_f32_matmuls()
-    cap_ri = torch.from_numpy(
-        np.stack([capbuf.real, capbuf.imag], -1).astype(np.float32)).to(dev)
+        return _host_search(np.asarray(capbuf, dtype=np.complex128),
+                            fc_requested, fc_programmed, fs_programmed,
+                            f_search_set, ds_comb_arm, thresh2_n_sigma,
+                            interp, verbose)
+    with TRACER.span("search"):
+        with TRACER.span("search.upload"):
+            dev = resolve_device(device)
+            full_f32_matmuls()
+            capbuf = np.asarray(capbuf, dtype=np.complex128)
+            cap_ri = torch.from_numpy(np.stack(
+                [capbuf.real, capbuf.imag], -1).astype(np.float32)).to(dev)
 
-    # ---- scan + threshold + greedy peaks, on the device.
-    plan = scan_plan(len(capbuf), f_search_set, fc_requested, fc_programmed,
-                     fs_programmed)
-    packed, single, _ = xcorr_core(cap_ri.T.contiguous(), plan, ds_comb_arm)
-    r_norm = r_th1_normalized(plan.n_comb_xc, ds_comb_arm, THRESH1_N_NINES)
-    peaks = peaks_to_cells(peak_search(packed, single, r_norm, ds_comb_arm),
-                           f_search_set, fc_requested, fc_programmed,
-                           fs_programmed)
-    if verbose:
-        print(f"  {len(peaks)} candidate peak(s)")
+        # ---- scan + threshold + greedy peaks, on the device.
+        with TRACER.span("search.scan"):
+            plan = scan_plan(len(capbuf), f_search_set, fc_requested,
+                             fc_programmed, fs_programmed)
+            packed, single, _ = xcorr_core(cap_ri.T.contiguous(), plan,
+                                           ds_comb_arm)
+        with TRACER.span("search.peaks"):
+            r_norm = r_th1_normalized(plan.n_comb_xc, ds_comb_arm,
+                                      THRESH1_N_NINES)
+            peaks = peaks_to_cells(peak_search(packed, single, r_norm,
+                                               ds_comb_arm),
+                                   f_search_set, fc_requested, fc_programmed,
+                                   fs_programmed)
+        if verbose:
+            print(f"  {len(peaks)} candidate peak(s)")
 
-    # ---- SSS detection + fine FOE, then the blind MIB per CP type.
-    synced = sss_foe_batch(peaks, cap_ri, thresh2_n_sigma)
-    alive = [c for c in synced if c.n_id_1 >= 0]
-    if verbose >= 2 and len(alive) < len(synced):
-        print(f"    {len(synced) - len(alive)} peak(s) failed SSS detection")
-    detected: List[Cell] = []
-    for cp in ("normal", "extended"):
-        group = [c for c in alive if c.cp_type == cp]
-        for cell in decode_mib_batch(group, cap_ri, interp=interp):
-            if cell.n_rb_dl < 0:
-                if verbose >= 2:
-                    print("    peak failed MIB decode")
-                continue
-            detected.append(cell)
-            if verbose:
-                print(f"  cell ID {cell.n_id_cell()}: {cell.n_rb_dl} RB, "
-                      f"{cell.cp_type} CP, foff "
-                      f"{cell.freq_superfine:+.1f} Hz")
-    return detected
+        # ---- SSS detection + fine FOE, then the blind MIB per CP type.
+        with TRACER.span("search.sync"):
+            synced = sss_foe_batch(peaks, cap_ri, thresh2_n_sigma)
+        alive = [c for c in synced if c.n_id_1 >= 0]
+        if verbose >= 2 and len(alive) < len(synced):
+            print(f"    {len(synced) - len(alive)} peak(s) failed SSS "
+                  "detection")
+        detected: List[Cell] = []
+        with TRACER.span("search.mib"):
+            for cp in ("normal", "extended"):
+                group = [c for c in alive if c.cp_type == cp]
+                for cell in decode_mib_batch(group, cap_ri, interp=interp):
+                    if cell.n_rb_dl < 0:
+                        if verbose >= 2:
+                            print("    peak failed MIB decode")
+                        continue
+                    detected.append(cell)
+                    if verbose:
+                        print(f"  cell ID {cell.n_id_cell()}: {cell.n_rb_dl} "
+                              f"RB, {cell.cp_type} CP, foff "
+                              f"{cell.freq_superfine:+.1f} Hz")
+        return detected
 
 
 def _host_search(capbuf, fc_requested, fc_programmed, fs_programmed,
@@ -188,8 +200,8 @@ def peak_search(packed: torch.Tensor, single: torch.Tensor, r_norm: float,
     unbounded there if its table filled
     (:func:`~lte_cell_scanner_tpu_torch.ops.peak_torch.redo_full_tables`).
     Returns the host table, its unused slots at pow 0."""
-    table = peak_search_device(packed, single, r_norm, ds_comb_arm,
-                               max_peaks=MAX_PEAKS).cpu().numpy()
+    table = to_host(peak_search_device(packed, single, r_norm, ds_comb_arm,
+                                       max_peaks=MAX_PEAKS))
     return redo_full_tables(table[None], packed[None], single[None], r_norm,
                             ds_comb_arm)[0]
 

@@ -33,7 +33,6 @@ last chunk padded to one compiled shape) have no counterpart here.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -50,6 +49,7 @@ from lte_cell_scanner_tpu_torch.parallel.fc_sweep import (StackDecode,
 from lte_cell_scanner_tpu_torch.search.cell_search import dedup
 from lte_cell_scanner_tpu_torch.utils.device import (HostFetch,
                                                      full_f32_matmuls)
+from lte_cell_scanner_tpu_torch.utils.profiling import TRACER
 
 
 @dataclasses.dataclass
@@ -77,6 +77,7 @@ class _Chunk:
     parts: List[_Part]
 
 
+@TRACER.traced("pipe")
 def pipelined_search_sweep(capbufs, fc_list: Sequence[float],
                            f_search_set: np.ndarray, device=None,
                            batch: int = 64,
@@ -85,7 +86,7 @@ def pipelined_search_sweep(capbufs, fc_list: Sequence[float],
                            dedup_cells: bool = True,
                            fc_prog_list: Optional[Sequence[float]] = None,
                            share_banks: bool = False,
-                           interp: str = "freq_time", stage_s=None):
+                           interp: str = "freq_time"):
     """Full cell search of a whole fc sweep, pipelined in chunks of
     ``batch`` captures. Same contract and results as
     parallel/fc_sweep.py::sharded_search_sweep; for long sweeps, where one
@@ -93,8 +94,9 @@ def pipelined_search_sweep(capbufs, fc_list: Sequence[float],
     the card idle while the host plans.
 
     ``capbufs``: uint8 radio planes (B, 2, n_cap), float planes, or
-    complex (B, n_cap). ``stage_s``, a dict, receives the host seconds
-    spent in each stage (tools/profile_pipeline.py). ``device`` as in
+    complex (B, n_cap). Each stage is a span of the tracer
+    (utils/profiling.py), ``pipe.<stage>`` inside ``pipe``
+    (tools/profile_pipeline.py reads them). ``device`` as in
     sharded_fc_sweep: the CUDA card by default, or a CapMesh, whose shard
     count must divide ``batch``; a sweep shorter than ``batch`` runs as
     one chunk of its length rounded up to a multiple of the shard count
@@ -136,84 +138,73 @@ def pipelined_search_sweep(capbufs, fc_list: Sequence[float],
                              fcp_all[lo:lo + n], parts))
     n_chunks = len(chunks)
     per_cap: List[List[Cell]] = [[] for _ in range(B_tot)]
-    clock = {} if stage_s is None else stage_s
 
-    def timed(name):
-        def wrap(fn):
-            def run(*args):
-                t0 = time.perf_counter()
-                try:
-                    return fn(*args)
-                finally:
-                    clock[name] = (clock.get(name, 0.0)
-                                   + time.perf_counter() - t0)
-            return run
-        return wrap
-
-    @timed("upload")
+    # Each stage is the tracer's span pipe.<stage>.
     def stage_upload(c: _Chunk):
         """Start each part's copy to its device on its shard's stream."""
-        for p in c.parts:
-            raw = host[c.lo + p.lo:c.lo + p.hi]
-            dev, stream = devs[p.shard], streams[p.shard]
-            if stream is None:
-                p.upload = (raw, None)
-                continue
-            with torch.cuda.stream(stream):
-                raw = raw.to(dev, non_blocking=True)
-                ev = torch.cuda.Event()
-                ev.record(stream)
-            p.upload = (raw, ev)
+        with TRACER.span("pipe.upload"):
+            for p in c.parts:
+                raw = host[c.lo + p.lo:c.lo + p.hi]
+                dev, stream = devs[p.shard], streams[p.shard]
+                if stream is None:
+                    p.upload = (raw, None)
+                    continue
+                with torch.cuda.stream(stream):
+                    raw = raw.to(dev, non_blocking=True)
+                    ev = torch.cuda.Event()
+                    ev.record(stream)
+                p.upload = (raw, ev)
 
-    @timed("scan")
     def stage_scan(c: _Chunk):
-        caps = []
-        for p in c.parts:
-            (raw, ev), dev = p.upload, devs[p.shard]
-            p.upload = None
-            if ev is not None:
-                torch.cuda.current_stream(dev).wait_event(ev)
-                raw.record_stream(torch.cuda.current_stream(dev))
-            caps.append(device_planes(raw, dev, non_blocking=True))
-        scans = scan_shards(caps, [(p.lo, p.hi) for p in c.parts], c.fcs,
-                            c.fcp, f_search_set, fs_programmed,
-                            share_banks=share_banks, non_blocking=True)
-        for p, cap, sc in zip(c.parts, caps, scans):
-            p.scan, p.flat = sc, flat_stack(cap)
-            p.tables = HostFetch({"tables": sc.tables})
+        with TRACER.span("pipe.scan"):
+            caps = []
+            for p in c.parts:
+                (raw, ev), dev = p.upload, devs[p.shard]
+                p.upload = None
+                if ev is not None:
+                    torch.cuda.current_stream(dev).wait_event(ev)
+                    raw.record_stream(torch.cuda.current_stream(dev))
+                caps.append(device_planes(raw, dev, non_blocking=True))
+            scans = scan_shards(caps, [(p.lo, p.hi) for p in c.parts],
+                                c.fcs, c.fcp, f_search_set, fs_programmed,
+                                share_banks=share_banks, non_blocking=True)
+            for p, cap, sc in zip(c.parts, caps, scans):
+                p.scan, p.flat = sc, flat_stack(cap)
+                p.tables = HostFetch({"tables": sc.tables})
 
-    @timed("tables")
     def stage_tables(c: _Chunk):
         """Collect the peak tables and plan the candidates (host)."""
-        for p in c.parts:
-            tables = p.scan.host_tables(p.tables.wait()["tables"])
-            p.decode = StackDecode(
-                tables_to_peaks(tables, c.fcs[p.lo:p.hi], f_search_set,
-                                fs_programmed, fc_prog_list=c.fcp[p.lo:p.hi]),
-                p.flat, n_cap, thresh2_n_sigma, interp)
-            p.scan = p.tables = p.flat = None
+        with TRACER.span("pipe.tables"):
+            for p in c.parts:
+                tables = p.scan.host_tables(p.tables.wait()["tables"])
+                p.decode = StackDecode(
+                    tables_to_peaks(tables, c.fcs[p.lo:p.hi], f_search_set,
+                                    fs_programmed,
+                                    fc_prog_list=c.fcp[p.lo:p.hi]),
+                    p.flat, n_cap, thresh2_n_sigma, interp)
+                p.scan = p.tables = p.flat = None
 
-    @timed("sync_dispatch")
     def stage_sync_dispatch(c: _Chunk):
-        for p in c.parts:
-            p.decode.dispatch_sync()
+        with TRACER.span("pipe.sync_dispatch"):
+            for p in c.parts:
+                p.decode.dispatch_sync()
 
-    @timed("sync_collect")
     def stage_sync_collect(c: _Chunk):
-        for p in c.parts:
-            p.decode.collect_sync()
+        with TRACER.span("pipe.sync_collect"):
+            for p in c.parts:
+                p.decode.collect_sync()
 
-    @timed("mib_dispatch")
     def stage_mib(c: _Chunk):
-        for p in c.parts:
-            p.decode.dispatch_mib()
+        with TRACER.span("pipe.mib_dispatch"):
+            for p in c.parts:
+                p.decode.dispatch_mib()
 
-    @timed("mib_collect")
     def stage_collect(c: _Chunk):
-        for p in c.parts:
-            for b, cell in p.decode.collect_mib():
-                per_cap[c.lo + p.lo + b].append(cell)
-            p.decode = None
+        with TRACER.span("pipe.mib_collect"):
+            for p in c.parts:
+                for b, cell in p.decode.collect_mib():
+                    per_cap[c.lo + p.lo + b].append(cell)
+                p.decode = None
 
     def live(k: int) -> bool:
         return 0 <= k < n_chunks

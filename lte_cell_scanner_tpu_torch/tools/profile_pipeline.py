@@ -7,12 +7,14 @@ capture is the simulator's (cell 271, normal CP, 50 RB), or with
 ``--load DIR`` the recordings capbuf_XXXX.it there, in turn; each goes in
 as the radio's uint8 I/Q planes (x 0.3, so that the bytes do not clip).
 After one warm-up sweep, ``--reps`` sweeps are timed on the host clock,
-each ending in a device sync; the host seconds that each stage of the
-pipeline spends (upload, scan, tables, sync dispatch and collect, MIB
-dispatch and collect) are summed per sweep. A stage that waits for the
-card (tables, the collects) carries the wait. Prints one JSON line: the
-median wall ms per carrier and per chunk, each stage's median ms per
-chunk, and the cells found.
+each ending in a device sync, with the program's tracer on
+(utils/profiling.py): the seconds of each of the pipeline's stage spans
+(``pipe.upload``, ``pipe.scan``, ``pipe.tables``, ``pipe.sync_dispatch``,
+``pipe.sync_collect``, ``pipe.mib_dispatch``, ``pipe.mib_collect``) and
+of its host waits on the card (``pipe.wait``, inside the stages that
+wait) are summed per sweep. Prints one JSON line: the median wall ms per
+carrier and per chunk, each stage's median ms per chunk, and the cells
+found.
 
 Usage:
     python -m lte_cell_scanner_tpu_torch.tools.profile_pipeline \\
@@ -34,6 +36,7 @@ from lte_cell_scanner_tpu_torch.io.simulator import synthetic_capture
 from lte_cell_scanner_tpu_torch.search.cell_search import generate_search_sets
 from lte_cell_scanner_tpu_torch.search.pipeline import pipelined_search_sweep
 from lte_cell_scanner_tpu_torch.utils.device import resolve_device
+from lte_cell_scanner_tpu_torch.utils.profiling import TRACER
 
 # The simulator's |x| reaches ~2.6: at 0.3 the bytes do not clip.
 RADIO_GAIN = 0.3
@@ -80,22 +83,28 @@ def main(argv=None) -> dict:
     caps, fcs, fcp = sweep_inputs(args.carriers, args.fc, args.load)
     _, fset = generate_search_sets(args.fc, args.fc, args.ppm)
 
-    def sweep(stage_s=None):
+    def sweep():
         out = pipelined_search_sweep(
-            caps, fcs, fset, device=dev, batch=args.batch, fc_prog_list=fcp,
-            stage_s=stage_s)
+            caps, fcs, fset, device=dev, batch=args.batch, fc_prog_list=fcp)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return out
 
     per_cap, _ = sweep()
     walls, stages = [], []
-    for _ in range(args.reps):
-        st = {}
-        t0 = time.perf_counter()
-        sweep(st)
-        walls.append(time.perf_counter() - t0)
-        stages.append(st)
+    was_on = TRACER.on
+    TRACER.enable()
+    try:
+        for _ in range(args.reps):
+            TRACER.reset()
+            t0 = time.perf_counter()
+            sweep()
+            walls.append(time.perf_counter() - t0)
+            stages.append({k: v["seconds"] for k, v in
+                           TRACER.snapshot()["spans"].items()
+                           if k.startswith("pipe.")})
+    finally:
+        TRACER.on = was_on
     n_chunks = -(-args.carriers // args.batch)
     wall = float(np.median(walls))
     res = {
@@ -109,14 +118,15 @@ def main(argv=None) -> dict:
         "wall_ms_runs": [w * 1e3 for w in walls],
         "stage_ms_per_chunk": {
             k: float(np.median([s.get(k, 0.0) for s in stages])) * 1e3
-            / n_chunks for k in stages[0]},
+            / n_chunks for k in sorted({k for s in stages for k in s})},
         "cells": sorted({c.n_id_cell() for cells in per_cap for c in cells}),
         "carriers_with_cells": sum(bool(cells) for cells in per_cap),
         "note": ("host clock, each sweep ending in a device sync; a stage "
-                 "that waits for the card carries the wait"),
+                 "that waits for the card carries the wait, which "
+                 "pipe.wait also sums"),
     }
     res["stage_ms_accounted_per_chunk"] = sum(
-        res["stage_ms_per_chunk"].values())
+        v for k, v in res["stage_ms_per_chunk"].items() if k != "pipe.wait")
     print(json.dumps(res))
     return res
 

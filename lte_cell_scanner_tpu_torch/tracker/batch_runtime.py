@@ -63,8 +63,10 @@ from lte_cell_scanner_tpu_torch.ops.pbch import N_RB_DL_TABLE, PHICH_RES_TABLE
 from lte_cell_scanner_tpu_torch.ops.sync_torch import cconj, cmul
 from lte_cell_scanner_tpu_torch.tracker import batch_frontend as bf
 from lte_cell_scanner_tpu_torch.tracker.state import GlobalState, TrackedCell
-from lte_cell_scanner_tpu_torch.utils.device import (full_f32_matmuls,
-                                                     resolve_device)
+from lte_cell_scanner_tpu_torch.utils.device import (HostFetch,
+                                                     full_f32_matmuls,
+                                                     resolve_device, to_host)
+from lte_cell_scanner_tpu_torch.utils.profiling import TRACER
 
 _WRAP = 19200.0
 _META = ("seq", "shift", "slot", "sym", "fo", "ft")
@@ -145,27 +147,6 @@ def _iir_chain(x0, targets, alphas, chunk=64):
         corr = np.sum(a * t / p, axis=0)
         x = p[-1] * (x + corr)
     return x
-
-
-class _Fetch:
-    """A device result's copy into host memory, started at construction
-    (pinned memory, non-blocking, behind a CUDA event) and awaited by
-    :meth:`numpy`, so the round trip overlaps the next device program."""
-
-    def __init__(self, t: torch.Tensor):
-        self.event = None
-        if t.device.type == "cuda":
-            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self.host.copy_(t, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.host = t
-
-    def numpy(self) -> np.ndarray:
-        if self.event is not None:
-            self.event.synchronize()
-        return self.host.numpy()
 
 
 class BatchTrackerEngine:
@@ -287,7 +268,12 @@ class BatchTrackerEngine:
         self._td = {"key": key, "H": H, "count": count}
 
     # ------------------------------------------------------------------
+    @TRACER.traced("engine")
     def process_all(self, cells: List[TrackedCell]) -> None:
+        """One engine cycle over ``cells``: the tracer's span ``engine``,
+        its stages ``engine.demod`` (dispatch, then ingestion),
+        ``engine.route``, ``engine.stats`` (dispatch, then finish) and
+        ``engine.finalize`` (with the MIB decode)."""
         cells = [c for c in cells if not c.kill_me]
         live = {_key(c) for c in cells}
         for k in list(self.ctx):
@@ -311,21 +297,27 @@ class BatchTrackerEngine:
             # fetched (its planning needs only host-side metadata), so the
             # demod fetch's round trip overlaps the stats compute instead
             # of idling the device.
-            cyc = self._dispatch_demod(work)
-            self._host_route(work, cyc)
+            with TRACER.span("engine.demod"):
+                cyc = self._dispatch_demod(work)
+            with TRACER.span("engine.route"):
+                self._host_route(work, cyc)
             sp = None
             try:
-                sp = self._dispatch_stats_dispatch(work, cyc)
+                with TRACER.span("engine.stats"):
+                    sp = self._dispatch_stats_dispatch(work, cyc)
             finally:
                 # Always land the demod values: a stats-dispatch error
                 # must not leave permanent None placeholders in
                 # ctx.pending.
-                self._ingest_demod(work, cyc)
+                with TRACER.span("engine.demod"):
+                    self._ingest_demod(work, cyc)
             if sp is not None:
-                self._stats_finish(work, sp)
+                with TRACER.span("engine.stats"):
+                    self._stats_finish(work, sp)
         else:
             self._prune_ring()
-        self._finalize(cells)
+        with TRACER.span("engine.finalize"):
+            self._finalize(cells)
 
     def _prune_ring(self) -> None:
         """Keep ~2 s of the sample ring when nothing consumes it (the
@@ -469,8 +461,8 @@ class BatchTrackerEngine:
         # The fetch is consumed in _ingest_demod (after the stats
         # dispatch); its copy is enqueued HERE, first, so it starts as
         # soon as the demod program finishes.
-        cyc.update(flat=_Fetch(flat), Q=Q, K=K, ce_dev=ce_dev, R=R,
-                   patch=[])
+        cyc.update(flat=HostFetch({"flat": flat}), Q=Q, K=K, ce_dev=ce_dev,
+                   R=R, patch=[])
         return cyc
 
     # ------------------------------------------------------------------
@@ -481,7 +473,8 @@ class BatchTrackerEngine:
         round trip overlaps device compute; everything filled here is
         only consumed from _stats_finish/_finalize onward."""
         kept, s_tp, s_sp, s_np, s_npb, s_ce = _unpack(
-            cyc["flat"].numpy(), demod_shapes(cyc["C"], cyc["Q"], cyc["K"]))
+            cyc["flat"].wait()["flat"],
+            demod_shapes(cyc["C"], cyc["Q"], cyc["K"]))
         kept_c = {}
         for ctx, pos, ci, qi in cyc["patch"]:
             if ci not in kept_c:
@@ -669,8 +662,9 @@ class BatchTrackerEngine:
         self._td["H"] = td_hist            # stays on device, never fetched
         # Start the copy now; _stats_finish consumes it after the demod
         # ingestion has had its round trip.
-        return dict(flat=_Fetch(flat), T=T, E=E, C=C, P=P, total=total,
-                    segments=segments, emit_idx=emit_idx, td_ok=td_ok)
+        return dict(flat=HostFetch({"flat": flat}), T=T, E=E, C=C, P=P,
+                    total=total, segments=segments, emit_idx=emit_idx,
+                    td_ok=td_ok)
 
     def _stats_finish(self, work, sp) -> None:
         """Stats program (finish half): fetch + the vectorized feedback
@@ -680,7 +674,7 @@ class BatchTrackerEngine:
         emit_idx = sp["emit_idx"]
         (foe_ang, foe_np, delay, delay_np, ce_filt_e, scal_e,
          ac_sum, acw_sum, carry_out, td_xc) = _unpack(
-             sp["flat"].numpy(), stats_shapes(T, E, C, P))
+             sp["flat"].wait()["flat"], stats_shapes(T, E, C, P))
         td_ok = sp["td_ok"]
 
         # Store next cycle's carry values (host side, robust to cell-set
@@ -937,7 +931,7 @@ class BatchTrackerEngine:
             batch = np.stack([_mib_soft(ctx, cell, win)
                               for ctx, cell, win, _ in jobs]
                              ).astype(np.float32)
-            dec = lte_conv_decode_batch(self._up(batch)).cpu().numpy()
+            dec = to_host(lte_conv_decode_batch(self._up(batch)))
             again = False
             for (ctx, cell, win, popped), c_est in zip(jobs, dec):
                 ok = _mib_check(cell, c_est.astype(np.uint8))

@@ -36,6 +36,7 @@ from lte_cell_scanner_tpu_torch.tracker.searcher import (kalibrate,
                                                          searcher_pass)
 from lte_cell_scanner_tpu_torch.tracker.state import GlobalState, TrackedCell
 from lte_cell_scanner_tpu_torch.utils.device import resolve_device
+from lte_cell_scanner_tpu_torch.utils.profiling import TRACER
 
 BLOCK_SIZE = 10000
 
@@ -142,6 +143,7 @@ class LTETracker:
         self.on_event = on_event or (lambda kind, info: None)
         self.feeder.request_searcher_capture()
         self.n_blocks = 0
+        self.searcher_passes = 0
         self.engine_every = max(1, engine_every)
 
     # ------------------------------------------------------------------
@@ -177,8 +179,11 @@ class LTETracker:
                 break
         return n
 
+    @TRACER.traced("tracker.step")
     def step(self, raw_block: np.ndarray) -> None:
-        """Process one block of raw uint8 IQ samples."""
+        """Process one block of raw uint8 IQ samples: the tracer's span
+        ``tracker.step``, holding ``tracker.feed``, the engine's cycle
+        and any searcher pass (``tracker.searcher``)."""
         self.n_blocks += 1
         if self.engine is not None:
             self.engine.push_raw(raw_block)
@@ -190,10 +195,11 @@ class LTETracker:
                 self.trackers.pop(cell.n_id_cell, None)
                 self.on_event("cell_dropped", {"n_id_cell": cell.n_id_cell})
 
-        if isinstance(self.feeder, NativeSampleFeeder):
-            self.feeder.feed_bytes(raw_block, self.cells)
-        else:
-            self.feeder.feed(bytes_to_iq(raw_block), self.cells)
+        with TRACER.span("tracker.feed"):
+            if isinstance(self.feeder, NativeSampleFeeder):
+                self.feeder.feed_bytes(raw_block, self.cells)
+            else:
+                self.feeder.feed(bytes_to_iq(raw_block), self.cells)
         if self.engine is None:
             for cell in self.cells:
                 self.trackers[cell.n_id_cell].process_available()
@@ -206,12 +212,14 @@ class LTETracker:
             self.feeder.request_searcher_capture()
 
     # ------------------------------------------------------------------
+    @TRACER.traced("tracker.searcher")
     def _run_searcher(self, capbuf: np.ndarray, late: float) -> None:
         """One searcher cycle on a fresh capture buffer.
 
-        reference: src/searcher_thread.cpp:83-233.
+        reference: src/searcher_thread.cpp:83-233. The tracer's span
+        ``tracker.searcher``; ``status()`` reports the passes made.
         """
-        t0 = time.time()
+        t0 = time.perf_counter()
         tracked_ids = {c.n_id_cell for c in self.cells}
         found = searcher_pass(capbuf, self.state, tracked_ids,
                               device=self.device, backend=self.backend)
@@ -238,7 +246,8 @@ class LTETracker:
                 "n_id_cell": n_id, "n_ports": cell.n_ports,
                 "n_rb_dl": cell.n_rb_dl, "cp_type": cell.cp_type,
                 "frame_timing": cell.frame_timing})
-        self.state.searcher_cycle_time = time.time() - t0
+        self.state.searcher_cycle_time = time.perf_counter() - t0
+        self.searcher_passes += 1
 
     # ------------------------------------------------------------------
     def status(self) -> dict:
@@ -246,6 +255,7 @@ class LTETracker:
         return {
             "frequency_offset": self.state.frequency_offset,
             "searcher_cycle_time": self.state.searcher_cycle_time,
+            "searcher_passes": self.searcher_passes,
             "raw_seconds_dropped": self.state.raw_seconds_dropped,
             "cell_seconds_dropped": self.state.cell_seconds_dropped,
             "debug_g": self.state.debug_g,

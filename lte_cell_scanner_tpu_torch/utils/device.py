@@ -7,6 +7,8 @@ import contextlib
 import numpy as np
 import torch
 
+from lte_cell_scanner_tpu_torch.utils.profiling import TRACER
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the CUDA card. Raises when CUDA is asked for and
@@ -52,14 +54,22 @@ def upload(a: np.ndarray, dev: torch.device,
     return t.to(dev)
 
 
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a numpy array: on the card a blocking copy, the host
+    waiting for the stream inside the tracer's ``wait`` span."""
+    with TRACER.wait():
+        return t.cpu().numpy()
+
+
 class HostFetch:
     """Tensors on their way to the host.
 
     On the card each tensor is copied into pinned host memory with
     ``non_blocking=True`` on the current stream, and an event is recorded
     after the copies: the host goes on until :meth:`wait`, which waits for
-    that event only. CPU tensors are held as they are. :meth:`wait`
-    returns a dict of numpy arrays under the same keys.
+    that event only, inside the tracer's ``wait`` span. CPU tensors are
+    held as they are. :meth:`wait` returns a dict of numpy arrays under
+    the same keys.
     """
 
     def __init__(self, tensors: dict):
@@ -79,6 +89,7 @@ class HostFetch:
             self.event.record(torch.cuda.current_stream(dev))
 
     def wait(self) -> dict:
-        if self.event is not None:
-            self.event.synchronize()
-        return {k: v.numpy() for k, v in self.host.items()}
+        with TRACER.wait():
+            if self.event is not None:
+                self.event.synchronize()
+            return {k: v.numpy() for k, v in self.host.items()}

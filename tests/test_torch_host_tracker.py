@@ -192,20 +192,27 @@ def test_host_tracker_matches_jax_default(sim_signal):
     """LTETracker(batch=False, backend="numpy") against the JAX package's
     LTETracker() (its defaults): kalibrate, then BLOCKS blocks with a CE
     tap; events, status (but the searcher's wall time) and every tap
-    equal to the bit."""
-    runs = []
+    equal to the bit, and the port's count of searcher passes equal to
+    the JAX tracker's passes."""
+    runs, jax_passes = [], []
     for cls, src, kw in ((LTETracker, playback_source,
                           dict(batch=False, backend="numpy", device="cpu")),
                          (JaxTracker, jax_playback, {})):
         events, taps = [], []
         trk = cls(FC, on_event=lambda k, i: events.append((k, i)),
                   ce_observer=(_tapped, lambda *a: taps.append(a)), **kw)
+        if cls is JaxTracker:
+            def counted(*a, _run=trk._run_searcher):
+                jax_passes.append(1)
+                return _run(*a)
+            trk._run_searcher = counted
         trk.kalibrate(src(sim_signal), ppm=10)
         trk.run(src(sim_signal, seed=1), max_blocks=BLOCKS)
         st = trk.status()
         st.pop("searcher_cycle_time")
         runs.append((events, st, taps, trk))
     (ev, st, taps, trk), (jev, jst, jtaps, _) = runs
+    assert st.pop("searcher_passes") == len(jax_passes) >= 1
     assert trk.engine is None and not trk.feeder.emit_descriptors
     assert ev == jev and [k for k, _ in ev] == ["kalibrate", "cell_acquired"]
     assert st == jst

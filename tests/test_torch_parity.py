@@ -64,23 +64,25 @@ RENAMED = {
     "tools/profile_pipeline.py:REPS": "--reps",
     # The deferred decode's cells travel in its plan.
     "ops/mib_jax.py:MibPending.cells": "MibPlan.cells",
-    # profile_pipeline's stages -> the pipeline's own stage clock (a
-    # string of search/pipeline.py; "tables" also turns the tables into
+    # profile_pipeline's stages -> the pipeline's tracer spans (a string
+    # of search/pipeline.py; "pipe.tables" also turns the tables into
     # candidates).
-    "tools/profile_pipeline.py['upload_wait']": "search/pipeline.py['upload']",
-    "tools/profile_pipeline.py['scan_dispatch']": "search/pipeline.py['scan']",
+    "tools/profile_pipeline.py['upload_wait']":
+        "search/pipeline.py['pipe.upload']",
+    "tools/profile_pipeline.py['scan_dispatch']":
+        "search/pipeline.py['pipe.scan']",
     "tools/profile_pipeline.py['tables_fetch']":
-        "search/pipeline.py['tables']",
+        "search/pipeline.py['pipe.tables']",
     "tools/profile_pipeline.py['peaks_to_cells']":
-        "search/pipeline.py['tables']",
+        "search/pipeline.py['pipe.tables']",
     "tools/profile_pipeline.py['sync_plan_dispatch']":
-        "search/pipeline.py['sync_dispatch']",
+        "search/pipeline.py['pipe.sync_dispatch']",
     "tools/profile_pipeline.py['finish_sync']":
-        "search/pipeline.py['sync_collect']",
+        "search/pipeline.py['pipe.sync_collect']",
     "tools/profile_pipeline.py['mib_plan_dispatch']":
-        "search/pipeline.py['mib_dispatch']",
+        "search/pipeline.py['pipe.mib_dispatch']",
     "tools/profile_pipeline.py['finish_mib']":
-        "search/pipeline.py['mib_collect']",
+        "search/pipeline.py['pipe.mib_collect']",
 }
 
 # What the port leaves out on purpose: JAX-only twins and TPU workarounds.
@@ -160,6 +162,15 @@ JAX_ONLY = {
                   "full tables on the card",
     "search/pipeline.py:pipelined_search_sweep(defer_sync)":
         "the 4-deep schedule is the only one",
+    # The port's tracer never synchronizes and keeps aggregates only; the
+    # profiler's own trace replaces the exporter.
+    "utils/profiling.py:StageTimer.sync": "the tracer never synchronizes",
+    "utils/profiling.py:StageTimer.report": "snapshot() returns the "
+                                            "aggregates; nothing read the "
+                                            "table",
+    "utils/profiling.py:device_trace": "an exporter nothing read; spans "
+                                       "reach any torch.profiler trace as "
+                                       "lte.* ranges",
 }
 
 

@@ -112,28 +112,147 @@ def test_load_rtl_sdr(tmp_path):
                                   jax_load(path, drop_seconds=1e-3))
 
 
-def test_stage_timer_and_trace(tmp_path):
+def _tracer_off(tracer, monkeypatch):
+    """Off, a span is the one shared no-op: it reads no clock, enters no
+    profiler range, allocates nothing and aggregates nothing."""
+    import sys
+
+    from lte_cell_scanner_tpu_torch.utils import profiling
+
+    def refuse(*a, **k):
+        raise AssertionError("the off path called it")
+
+    monkeypatch.setattr(profiling, "perf_counter", refuse)
+    monkeypatch.setattr(profiling, "record_function", refuse)
+    assert tracer.span("a") is tracer.span("b") is tracer.wait()
+    with tracer.span("search"):
+        with tracer.wait():
+            pass
+    blocks = sys.getallocatedblocks()
+    for _ in range(10000):
+        with tracer.span("search.scan"):
+            pass
+    assert sys.getallocatedblocks() - blocks < 10
+    assert tracer.snapshot()["spans"] == {} and tracer.counts == {}
+
+
+def _tracer_nesting(tracer, monkeypatch):
+    """On, a span adds its duration to its name and to its parent's child
+    seconds: self_s = seconds - child seconds."""
     import time
 
-    from lte_cell_scanner_tpu_torch.utils.profiling import (StageTimer,
-                                                            device_trace)
+    tracer.enable()
+    for _ in range(2):
+        with tracer.span("sweep"):
+            time.sleep(0.01)
+            with tracer.span("sweep.scan"):
+                time.sleep(0.02)
+    spans = tracer.snapshot()["spans"]
+    top, scan = spans["sweep"], spans["sweep.scan"]
+    assert top["calls"] == scan["calls"] == 2
+    assert scan["seconds"] >= 0.04 and top["seconds"] >= 0.06
+    assert top["self_s"] == pytest.approx(top["seconds"] - scan["seconds"],
+                                          abs=1e-12)
+    assert 0.02 <= top["self_s"] < top["seconds"]
+    assert scan["self_s"] == scan["seconds"]
+    tracer.disable()
+    with tracer.span("sweep"):
+        pass
+    assert tracer.snapshot()["spans"]["sweep"]["calls"] == 2
 
-    timer = StageTimer()
-    with timer("scan", items=1000):
-        time.sleep(0.01)
-    with timer("scan", items=1000):
+
+def _tracer_wait(tracer, monkeypatch):
+    """wait() is named after the innermost open span's layer, which also
+    counts its waits; the waits leave their stage's self time."""
+    tracer.enable()
+    with tracer.span("engine"):
+        with tracer.span("engine.demod"):
+            with tracer.wait():
+                pass
+            with tracer.wait():
+                pass
+        with tracer.wait():
+            pass
+    with tracer.span("search"):
+        with tracer.wait():
+            pass
+    with tracer.wait():
         pass
-    with timer("peaks"):
-        pass
-    rep = timer.report(unit="samples")
-    assert "scan" in rep and "peaks" in rep and "samples/s" in rep
-    assert timer.stages["scan"].calls == 2
-    assert timer.stages["scan"].items == 2000
-    assert timer.stages["scan"].seconds >= 0.01
-    with device_trace(str(tmp_path)) as prof:
-        torch.ones(64).cumsum(0)
-    assert prof.key_averages()
-    assert (tmp_path / "trace.json").stat().st_size > 0
+    snap = tracer.snapshot()
+    spans, counts = snap["spans"], snap["counts"]
+    assert spans["engine.wait"]["calls"] == counts["engine.waits"] == 3
+    assert spans["search.wait"]["calls"] == counts["search.waits"] == 1
+    assert spans["wait"]["calls"] == counts["waits"] == 1
+    demod = spans["engine.demod"]
+    assert demod["self_s"] < demod["seconds"]
+
+
+def _tracer_counts(tracer, monkeypatch):
+    """Counters count on or off, from the last reset; a wait counts only
+    while the tracer is on, when its layer is known."""
+    tracer.count("search.waits", 3)
+    with tracer.span("search"):
+        with tracer.wait():
+            pass
+    assert tracer.snapshot()["counts"] == {"search.waits": 3}
+    tracer.reset()
+    tracer.count("search.waits")
+    tracer.enable()
+    with tracer.span("search"):
+        with tracer.wait():
+            pass
+    assert tracer.snapshot()["counts"] == {"search.waits": 2}
+
+
+def _tracer_traced(tracer, monkeypatch):
+    """A function under traced(name) is a span name a call, its name and
+    result kept, and does nothing more off."""
+    @tracer.traced("engine")
+    def process_all(cells, step=1):
+        """Doc."""
+        with tracer.span("engine.route"):
+            return len(cells) * step
+
+    assert process_all.__name__ == "process_all"
+    assert process_all.__doc__ == "Doc."
+    assert process_all([1, 2], step=3) == 6
+    assert tracer.snapshot()["spans"] == {}
+    tracer.enable()
+    assert process_all([1]) == 1
+    spans = tracer.snapshot()["spans"]
+    assert spans["engine"]["calls"] == spans["engine.route"]["calls"] == 1
+    assert spans["engine"]["self_s"] < spans["engine"]["seconds"]
+
+
+def _tracer_profiler(tracer, monkeypatch):
+    """While the profiler records, the tracer records too (enabled or
+    not) and each span is an lte.* range, nested as the spans were."""
+    with torch.profiler.profile() as prof:
+        with tracer.span("sweep"):
+            with tracer.span("sweep.plan"):
+                torch.ones(64).cumsum(0)
+            with tracer.wait():
+                pass
+    ranges = {e.name: e for e in prof.events() if e.name.startswith("lte.")}
+    assert set(ranges) == {"lte.sweep", "lte.sweep.plan", "lte.sweep.wait"}
+    outer = ranges["lte.sweep"].time_range
+    for name in ("lte.sweep.plan", "lte.sweep.wait"):
+        inner = ranges[name].time_range
+        assert outer.start <= inner.start and inner.end <= outer.end
+    assert tracer.snapshot()["spans"]["sweep.plan"]["calls"] == 1
+    assert tracer.span("sweep") is tracer.wait()     # off again
+
+
+@pytest.mark.parametrize("case", [_tracer_off, _tracer_nesting,
+                                  _tracer_wait, _tracer_counts,
+                                  _tracer_traced, _tracer_profiler],
+                         ids=lambda f: f.__name__[len("_tracer_"):])
+def test_stage_timer_and_trace(case, monkeypatch):
+    """The program's tracer (utils/profiling.py), each case on a fresh
+    StageTimer."""
+    from lte_cell_scanner_tpu_torch.utils.profiling import StageTimer
+
+    case(StageTimer(), monkeypatch)
 
 
 def test_mc_search_matches_jax():
