@@ -5,4 +5,7 @@ from lte_cell_scanner_tpu_torch.io.itfile import (  # noqa: F401
     load_it,
     save_it,
 )
-from lte_cell_scanner_tpu_torch.io.raw import load_rtl_sdr  # noqa: F401
+from lte_cell_scanner_tpu_torch.io.raw import (  # noqa: F401
+    load_rtl_sdr,
+    load_sc16,
+)

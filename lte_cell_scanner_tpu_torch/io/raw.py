@@ -1,7 +1,10 @@
-"""Raw rtl_sdr captures: interleaved uint8 I/Q, normalized (x-127)/128.
+"""Raw recordings: rtl_sdr captures (interleaved uint8 I/Q, normalized
+(x-127)/128) and wideband SDR recordings in sc16 (interleaved int16 I/Q,
+full scale 32768).
 
 reference: src/itpp_ext.cpp:176-217 (rtl_sdr_to_cvec) and the byte->complex
-conversion in src/capbuf.cpp:172-181.
+conversion in src/capbuf.cpp:172-181. The sc16 format is what UHD's
+``rx_samples_to_file --type short`` writes (USRP B210, bladeRF).
 """
 
 from __future__ import annotations
@@ -42,3 +45,12 @@ def load_rtl_sdr(path: str, drop_seconds: float = 0.0,
     iq = bytes_to_iq(raw)
     n_drop = int(round(drop_seconds * fs))
     return iq[n_drop:]
+
+
+def load_sc16(path: str) -> np.ndarray:
+    """An sc16 recording as stored: the (n, 2) int16 array of interleaved
+    little-endian I/Q pairs (a trailing odd value is dropped). The
+    samples are x / 32768; the wideband search converts them on the
+    device (search/wideband.py::wide_planes)."""
+    raw = np.fromfile(path, dtype="<i2")
+    return raw[:raw.size // 2 * 2].astype(np.int16, copy=False).reshape(-1, 2)

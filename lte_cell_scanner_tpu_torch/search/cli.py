@@ -34,6 +34,9 @@ Usage:
         --freq-start 739e6 --load --data-dir DIR
     python -m lte_cell_scanner_tpu_torch.search.cli \\
         --freq-start 724.3e6 --freq-end 753.8e6 --wideband FILE.it
+    python -m lte_cell_scanner_tpu_torch.search.cli \\
+        --freq-start 729e6 --freq-end 756e6 --wideband REC.sc16 \\
+        --wideband-sc16 --fs-in 30.72e6 --fc-center 742.5e6
 """
 
 from __future__ import annotations
@@ -134,6 +137,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--wideband-rtl-sdr", action="store_true",
                    help="the --wideband file is raw uint8 IQ (rtl_sdr "
                         "format) instead of .it; requires --fc-center")
+    p.add_argument("--wideband-sc16", action="store_true",
+                   help="the --wideband file is interleaved int16 IQ (sc16, "
+                        "as UHD's rx_samples_to_file --type short writes) "
+                        "instead of .it; requires --fs-in and --fc-center")
     p.add_argument("--fc-center", type=float, default=None,
                    help="wideband recording's center frequency (Hz; "
                         "required for raw recordings, overrides the .it "
@@ -244,19 +251,25 @@ def _wideband_sweep(args, f_search_set, verbosity: int) -> int:
     channelized on --device in one pass and swept as one batch
     (search/wideband.py)."""
     from lte_cell_scanner_tpu_torch.io.itfile import load_it
-    from lte_cell_scanner_tpu_torch.io.raw import load_rtl_sdr
+    from lte_cell_scanner_tpu_torch.io.raw import load_rtl_sdr, load_sc16
     from lte_cell_scanner_tpu_torch.search.wideband import (
         wideband_carriers, wideband_search_sweep)
 
-    if args.wideband_rtl_sdr:
-        # Raw uint8 IQ (the dongle's native file format) carries no
-        # metadata: rate and center frequency come from the command line.
+    if args.wideband_rtl_sdr and args.wideband_sc16:
+        sys.exit("Error: --wideband-rtl-sdr and --wideband-sc16 are "
+                 "mutually exclusive")
+    if args.wideband_rtl_sdr or args.wideband_sc16:
+        # Raw IQ (the dongle's uint8, an SDR's sc16) carries no metadata:
+        # rate and center frequency come from the command line.
+        flag = ("--wideband-sc16" if args.wideband_sc16
+                else "--wideband-rtl-sdr")
         if args.fs_in is None:
-            sys.exit("Error: --wideband-rtl-sdr requires --fs-in (the "
+            sys.exit(f"Error: {flag} requires --fs-in (the "
                      "recording's sample rate in Hz)")
         if args.fc_center is None:
-            sys.exit("Error: --wideband-rtl-sdr requires --fc-center")
-        wide = load_rtl_sdr(args.wideband, fs=args.fs_in)
+            sys.exit(f"Error: {flag} requires --fc-center")
+        wide = (load_sc16(args.wideband) if args.wideband_sc16
+                else load_rtl_sdr(args.wideband, fs=args.fs_in))
         fc_center = args.fc_center
     else:
         d = load_it(args.wideband)

@@ -18,6 +18,15 @@ as the JAX package leaves it to XLA outside any Pallas kernel; it runs in
 full float32 (:func:`~lte_cell_scanner_tpu_torch.utils.device.full_f32_matmuls`),
 since TF32 would cost ~1e-3 relative against the 2e-4 the channels are
 held to.
+
+A recording arrives complex (an .it file, rtl_sdr bytes) or as the (n, 2)
+int16 array of an sc16 file (io/raw.py::load_sc16): the int16 bytes are
+uploaded as they are and scaled to float32 planes on the device. The
+tracer's span ``wideband`` holds a sweep: ``wideband.upload`` (the
+recording to planes on the device), ``wideband.channelize`` (the filter
+bank), then the batched sweep's own ``sweep`` spans; the counter
+``wideband.table_builds`` counts the channelizer tables built (misses of
+its cache).
 """
 
 from __future__ import annotations
@@ -39,8 +48,10 @@ from lte_cell_scanner_tpu_torch.parallel.fc_sweep import (
     sharded_search_sweep, sweep_devices)
 from lte_cell_scanner_tpu_torch.utils.device import (full_f32_matmuls,
                                                      resolve_device, upload)
+from lte_cell_scanner_tpu_torch.utils.profiling import TRACER
 
 CAPLENGTH = 153600   # the searcher's 80 ms analysis window
+SC16_SCALE = 1.0 / 32768   # an sc16 sample's full scale (exact in float32)
 ROT_BLOCK = 2048     # S of the two-level post-rotation m = a*S + b
 
 # (fs_in, fc_center, carriers, n_wide, n_out, device) -> Channelizer: a
@@ -184,15 +195,27 @@ def make_channelizer(fs_in: float, fc_center: float,
            int(n_wide), n_out, str(dev))
     ch = _CHANNELIZER_CACHE.get(key)
     if ch is None:
+        TRACER.count("wideband.table_builds")
         ch = Channelizer(_geometry(fs_in, fc_center, fc_list, n_wide, n_out),
                          dev)
         _cache_put(_CHANNELIZER_CACHE, key, ch)
     return ch
 
 
+def is_sc16(wide) -> bool:
+    """Whether ``wide`` is an sc16 recording's (n, 2) int16 array."""
+    return wide.dtype == np.int16 and wide.ndim == 2 and wide.shape[1] == 2
+
+
 def wide_planes(wide: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """A complex recording as (2, n) float32 planes on ``dev``."""
+    """A recording as (2, n) float32 planes on ``dev``: a complex one
+    split on the host; an sc16 one's (n, 2) int16 array uploaded as it is
+    (4 bytes a sample) and scaled by 1/32768 on ``dev``, exactly."""
     wide = np.asarray(wide)
+    if is_sc16(wide):
+        x = upload(wide, dev)
+        planes = x.t().to(torch.float32, memory_format=torch.contiguous_format)
+        return planes.mul_(SC16_SCALE)
     planes = np.empty((2, len(wide)), np.float32)
     planes[0], planes[1] = wide.real, wide.imag
     return upload(planes, dev)
@@ -207,7 +230,10 @@ def channelize_batch(wide: np.ndarray, fs_in: float, fc_center: float,
     ``"cpu"``: plain PyTorch on the host), ready for the batched sweep."""
     ch = make_channelizer(fs_in, fc_center, fc_list, len(wide), n_out,
                           device)
-    return ch(wide_planes(wide, ch.device))
+    with TRACER.span("wideband.upload"):
+        planes = wide_planes(wide, ch.device)
+    with TRACER.span("wideband.channelize"):
+        return ch(planes)
 
 
 class ChannelizerMap:
@@ -285,13 +311,15 @@ def wideband_carriers(fs_in: float, fc_center: float,
     return [float(f) for f in np.arange(first, hi + raster / 2, raster)]
 
 
+@TRACER.traced("wideband")
 def wideband_search_sweep(wide: np.ndarray, fs_in: float,
                           fc_center: float, fc_list: Sequence[float],
                           f_search_set: np.ndarray, device=None,
                           backend: str = "torch", **sweep_kw
                           ) -> Tuple[List[List[Cell]], List[Cell]]:
-    """Channelize ``wide`` (complex, fs_in Sps, centred at fc_center) at
-    every carrier of ``fc_list`` and run the batched search sweep
+    """Channelize ``wide`` (complex, or an sc16 recording's (n, 2) int16
+    array; fs_in Sps, centred at fc_center) at every carrier of
+    ``fc_list`` and run the batched search sweep
     (:func:`~lte_cell_scanner_tpu_torch.parallel.fc_sweep.sharded_search_sweep`,
     ``sweep_kw``) on the 1.92 Msps channels, on ``device``: ``None`` spans
     every visible card the carriers divide over (the largest such count,
@@ -320,6 +348,9 @@ def wideband_search_sweep(wide: np.ndarray, fs_in: float,
                                    np.asarray(f_search_set), **sweep_kw)
     if backend != "numpy":
         raise ValueError(f"unknown backend {backend!r}")
+    wide = np.asarray(wide)
+    if is_sc16(wide):
+        wide = (wide[:, 0] + 1j * wide[:, 1]) * SC16_SCALE
     caps = [decimate_capture(wide, fs_in, freq_shift=fc - fc_center)
             [:CAPLENGTH] for fc in fc_list]
     n = min(len(c) for c in caps)

@@ -184,8 +184,8 @@ def test_port_imports_no_jax():
             "noise_bias.py", "pss_ambiguity.py", "profile_pipeline.py",
             "bench_wideband.py"} <= {
         p.name for p in files if p.parent.name == "tools"}
-    assert {"io/capture.py", "parallel/fc_sweep.py", "search/pipeline.py",
-            "io/frontend.py", "search/wideband.py",
+    assert {"io/capture.py", "io/raw.py", "parallel/fc_sweep.py",
+            "search/pipeline.py", "io/frontend.py", "search/wideband.py",
             "parallel/sharded_search.py", "parallel/multihost.py",
             "parallel/multichip_checks.py"} <= {
         f"{p.parent.name}/{p.name}" for p in files}

@@ -1,5 +1,6 @@
 """The tracer's spans on the port's measured paths (utils/profiling.py):
-cell_search, the whole-stack and pipelined sweeps and the tracker, each
+cell_search, the whole-stack, pipelined and wideband sweeps and the
+tracker, each
 on tiny simulator inputs on the CPU (device="cpu": the kernels' plain
 versions), with the process's tracer on."""
 
@@ -10,11 +11,13 @@ from lte_cell_scanner_tpu_torch.io.raw import iq_to_bytes
 from lte_cell_scanner_tpu_torch.io.simulator import synthetic_capture
 from lte_cell_scanner_tpu_torch.parallel.fc_sweep import sharded_search_sweep
 from lte_cell_scanner_tpu_torch.search.cell_search import cell_search
+from lte_cell_scanner_tpu_torch.search import wideband
 from lte_cell_scanner_tpu_torch.search.pipeline import pipelined_search_sweep
 from lte_cell_scanner_tpu_torch.tracker.runtime import (LTETracker,
                                                         playback_source)
 from lte_cell_scanner_tpu_torch.utils.profiling import TRACER
 from torch_one_thread import _one_torch_thread  # noqa: F401
+from torch_wide import to_sc16, wide_two_cells
 
 FSET = np.arange(-2, 3) * 5e3
 FCS = [739.0e6, 739.1e6]
@@ -92,6 +95,29 @@ def test_pipeline_spans(tracer, caps):
     assert stages | {"pipe", "pipe.wait"} <= set(spans)
     assert all(spans[k]["calls"] == 2 for k in stages)
     _layer_adds_up(spans, "pipe")
+
+
+def test_wideband_spans(tracer, monkeypatch):
+    """Two sweeps of one sc16 recording: each a ``wideband`` span that
+    holds its upload, its channelizer call and the batched sweep's
+    ``sweep`` span; the channelizer's tables are built once."""
+    monkeypatch.setattr(wideband, "_CHANNELIZER_CACHE", {})
+    sig, fs_in = wide_two_cells(decim=4)
+    sc16 = to_sc16(sig)
+    for _ in range(2):
+        _, cells = wideband.wideband_search_sweep(
+            sc16, fs_in, 739e6, [741e6], FSET, device="cpu")
+        assert [c.n_id_cell() for c in cells] == [271]
+    snap = tracer.snapshot()
+    spans, counts = snap["spans"], snap["counts"]
+    stages = {"wideband.upload", "wideband.channelize", "sweep"}
+    assert all(spans[k]["calls"] == 2 for k in stages | {"wideband"})
+    assert "sweep.stack" not in spans
+    assert counts["wideband.table_builds"] == 1
+    top = spans["wideband"]
+    assert top["seconds"] == pytest.approx(
+        top["self_s"] + sum(spans[k]["seconds"] for k in stages), rel=1e-9)
+    _layer_adds_up(spans, "sweep")
 
 
 def test_tracker_spans(tracer):

@@ -1,6 +1,8 @@
-"""Shared by tests/test_torch_frontend.py and tests/test_torch_wideband.py:
-the wideband recording of the JAX package's tests/test_wideband.py
-(``_wide_two_cells``), built with the port's simulator and interpft."""
+"""Shared by tests/test_torch_frontend.py, tests/test_torch_wideband.py,
+tests/test_torch_wideband_sc16.py and tests/test_torch_tracing.py: the
+wideband recording of the JAX package's tests/test_wideband.py
+(``_wide_two_cells``), built with the port's simulator and interpft, and
+its sc16 form."""
 
 import numpy as np
 
@@ -30,3 +32,11 @@ def wide_two_cells(decim=8, f_a=2.0e6, f_b=-1.5e6, seed=9):
     wide = wide + 0.001 * (rng.standard_normal(len(wide))
                            + 1j * rng.standard_normal(len(wide)))
     return wide, fs_in
+
+
+def to_sc16(sig, share=0.25):
+    """A complex recording as an sc16 file holds it, (n, 2) int16: its
+    largest I or Q value at ``share`` of full scale, rounded."""
+    peak = max(np.abs(sig.real).max(), np.abs(sig.imag).max())
+    x = sig * (share * 32768 / peak)
+    return np.round(np.stack([x.real, x.imag], 1)).astype(np.int16)
