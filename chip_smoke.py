@@ -872,6 +872,7 @@ def sweep_path(fset, close) -> dict:
     from lte_cell_scanner_tpu_torch.search.cell_search import cell_search
     from lte_cell_scanner_tpu_torch.search.pipeline import \
         pipelined_search_sweep
+    from lte_cell_scanner_tpu_torch.utils.device import device_planes
 
     dev = torch.device("cuda")
     out = {"launches": {}}
@@ -887,7 +888,7 @@ def sweep_path(fset, close) -> dict:
           f"{B} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # Batched K1 against its plain version at the sweep's inputs.
-    cap = fc_sweep.device_planes(planes, dev)
+    cap = device_planes(planes, dev)
     banks, bank_idx, starts, n_comb, _ = fc_sweep.scan_inputs(
         fcs, fcp, fset, 1.92e6, cap.shape[2], dev)
     got = xcorr_torch.xcorr_fold_batch(cap, banks, bank_idx, starts, n_comb)
@@ -1124,6 +1125,7 @@ def wideband_stages(wide, fcs, fset) -> dict:
     from lte_cell_scanner_tpu_torch.ops.xcorr_torch import xcorr_core_batch
     from lte_cell_scanner_tpu_torch.parallel import fc_sweep
     from lte_cell_scanner_tpu_torch.search.wideband import channelize_batch
+    from lte_cell_scanner_tpu_torch.utils.device import flat_stack
 
     st, t0 = {}, time.perf_counter()
 
@@ -1149,7 +1151,7 @@ def wideband_stages(wide, fcs, fset) -> dict:
     peaks = fc_sweep.tables_to_peaks(scan.host_tables(), fcs, fset)
     lap("peaks")
     del scan, packed, single
-    dec = fc_sweep.StackDecode(peaks, fc_sweep.flat_stack(cap), n_cap,
+    dec = fc_sweep.StackDecode(peaks, flat_stack(cap), n_cap,
                                THRESH2_N_SIGMA, "freq_time")
     dec.dispatch_sync()
     dec.collect_sync()
@@ -1509,6 +1511,7 @@ def multi_path(sweep: dict, wband: dict, fset) -> dict:
     from lte_cell_scanner_tpu_torch.search import wideband as wb
     from lte_cell_scanner_tpu_torch.search.pipeline import \
         pipelined_search_sweep
+    from lte_cell_scanner_tpu_torch.utils.device import device_planes
 
     n_cards = torch.cuda.device_count()
     print(f"multi: torch.cuda.device_count() = {n_cards} "
@@ -1569,7 +1572,7 @@ def multi_path(sweep: dict, wband: dict, fset) -> dict:
 
     # K1 at B = 32 (one shard's launch) against B = 64 in one launch.
     dev = torch.device("cuda:0")
-    cap = fc_sweep.device_planes(planes, dev)
+    cap = device_planes(planes, dev)
     banks, bank_idx, starts, n_comb, _ = fc_sweep.scan_inputs(
         fcs, fcp, fset, 1.92e6, cap.shape[2], dev)
     half = B // 2

@@ -47,6 +47,8 @@ from lte_cell_scanner_tpu_torch.ops.xcorr import (fold_start_indices,
 from lte_cell_scanner_tpu_torch.ops.xcorr_torch import xcorr_core_batch
 from lte_cell_scanner_tpu_torch.search.cell_search import dedup
 from lte_cell_scanner_tpu_torch.utils.device import (HostFetch,
+                                                     device_planes,
+                                                     flat_stack,
                                                      full_f32_matmuls,
                                                      resolve_device, to_host,
                                                      upload)
@@ -54,12 +56,6 @@ from lte_cell_scanner_tpu_torch.utils.profiling import TRACER
 
 # (sweep, mesh devices, shard bounds) -> [(banks, bank_idx) per shard]
 _DEV_BANK_CACHE: dict = {}
-# (device, (B, n)) -> [complex64 host staging buffer (pinned for a card),
-# the event recorded after its last copy to the card]
-_STAGING_CACHE: dict = {}
-# Bytes of complex64 a staged upload converts and copies at a time: the
-# card copies one chunk while the host converts the next.
-STAGE_CHUNK_BYTES = 16 << 20
 
 
 class CapMesh:
@@ -217,63 +213,6 @@ def _device_banks(fc_list, fcp, f_search_set, fs_programmed, n_cap,
     return entry
 
 
-def _staging_buffer(dev: torch.device, shape: Tuple[int, int]) -> list:
-    """The cached [complex64 host buffer, event] of ``shape`` for uploads
-    to ``dev``, once the card has read what it last held (pinned for a
-    card; counts ``sweep.staging_allocs`` on a miss)."""
-    key = (str(dev), shape)
-    entry = _STAGING_CACHE.get(key)
-    if entry is None:
-        TRACER.count("sweep.staging_allocs")
-        entry = [torch.empty(shape, dtype=torch.complex64,
-                             pin_memory=dev.type == "cuda"), None]
-        _cache_put(_STAGING_CACHE, key, entry, cap=2)
-    elif entry[1] is not None:
-        with TRACER.wait():
-            entry[1].synchronize()
-    return entry
-
-
-def _staged_planes(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """Complex (or real) (B, n) -> (B, 2, n) float32 planes on ``dev``:
-    each chunk of :data:`STAGE_CHUNK_BYTES` cast to complex64 into the
-    staging buffer (each part rounded to the nearest float32, as
-    ``astype`` does), then copied to the card without waiting, so that the
-    copy of one chunk overlaps the cast of the next; split into re/im
-    planes on ``dev``."""
-    a = np.ascontiguousarray(a)
-    entry = _staging_buffer(dev, a.shape)
-    stage = entry[0]
-    out = torch.empty(a.shape, dtype=torch.complex64, device=dev)
-    rows = max(1, STAGE_CHUNK_BYTES // (8 * a.shape[1]))
-    for lo in range(0, len(a), rows):
-        stage[lo:lo + rows].copy_(torch.from_numpy(a[lo:lo + rows]))
-        out[lo:lo + rows].copy_(stage[lo:lo + rows], non_blocking=True)
-    if dev.type == "cuda":
-        entry[1] = torch.cuda.Event()
-        entry[1].record(torch.cuda.current_stream(dev))
-    TRACER.count("sweep.staged_uploads")
-    return torch.view_as_real(out).permute(0, 2, 1).contiguous()
-
-
-def device_planes(capbufs, dev: torch.device,
-                  non_blocking: bool = False) -> torch.Tensor:
-    """(B, 2, n) float32 re/im planes on ``dev`` from complex (B, n)
-    (through a cached staging buffer, :func:`_staged_planes`), uint8 radio
-    planes (B, 2, n) (converted on the device as (x - 127) / 128), float
-    planes, or a tensor of either."""
-    if isinstance(capbufs, torch.Tensor):
-        x = capbufs.to(dev, non_blocking=non_blocking)
-    else:
-        a = np.asarray(capbufs)
-        if a.ndim == 2:
-            return _staged_planes(a, torch.device(dev))
-        x = upload(a, dev, non_blocking)
-    if x.dtype == torch.uint8:
-        return (x.to(torch.float32) - 127.0) / 128.0
-    return x.to(torch.float32).contiguous()
-
-
 def shard_stacks(capbufs, devs, bounds,
                  non_blocking: bool = False) -> List[torch.Tensor]:
     """Each shard's (hi - lo, 2, n) float32 planes on its device
@@ -424,11 +363,6 @@ def tables_to_peaks(tables: Sequence[np.ndarray], fc_list: Sequence[float],
     fcp = list(fc_list) if fc_prog_list is None else list(fc_prog_list)
     return [peaks_to_cells(tables[b], f_search_set, fc, fcp[b],
                            fs_programmed) for b, fc in enumerate(fc_list)]
-
-
-def flat_stack(cap: torch.Tensor) -> torch.Tensor:
-    """(B, 2, n) planes -> the (B n, 2) stack the decode programs read."""
-    return cap.transpose(1, 2).reshape(-1, 2)
 
 
 class StackDecode:

@@ -37,7 +37,9 @@ from lte_cell_scanner_tpu_torch.ops.sync_torch import sss_foe_batch
 from lte_cell_scanner_tpu_torch.ops.tfg import extract_tfg, tfoec
 from lte_cell_scanner_tpu_torch.ops.xcorr import xcorr_pss
 from lte_cell_scanner_tpu_torch.ops.xcorr_torch import scan_plan, xcorr_core
-from lte_cell_scanner_tpu_torch.utils.device import (full_f32_matmuls,
+from lte_cell_scanner_tpu_torch.utils.device import (device_planes,
+                                                     flat_stack,
+                                                     full_f32_matmuls,
                                                      resolve_device, to_host)
 from lte_cell_scanner_tpu_torch.utils.dsp import chi2cdf_inv, matlab_range
 from lte_cell_scanner_tpu_torch.utils.profiling import TRACER
@@ -108,16 +110,14 @@ def cell_search(
         with TRACER.span("search.upload"):
             dev = resolve_device(device)
             full_f32_matmuls()
-            capbuf = np.asarray(capbuf, dtype=np.complex128)
-            cap_ri = torch.from_numpy(np.stack(
-                [capbuf.real, capbuf.imag], -1).astype(np.float32)).to(dev)
+            planes = device_planes(np.asarray(capbuf)[None], dev)
+            cap_ri = flat_stack(planes)
 
         # ---- scan + threshold + greedy peaks, on the device.
         with TRACER.span("search.scan"):
-            plan = scan_plan(len(capbuf), f_search_set, fc_requested,
+            plan = scan_plan(planes.shape[2], f_search_set, fc_requested,
                              fc_programmed, fs_programmed)
-            packed, single, _ = xcorr_core(cap_ri.T.contiguous(), plan,
-                                           ds_comb_arm)
+            packed, single, _ = xcorr_core(planes[0], plan, ds_comb_arm)
         with TRACER.span("search.peaks"):
             r_norm = r_th1_normalized(plan.n_comb_xc, ds_comb_arm,
                                       THRESH1_N_NINES)

@@ -41,13 +41,13 @@ import torch
 from lte_cell_scanner_tpu_torch.constants import THRESH2_N_SIGMA
 from lte_cell_scanner_tpu_torch.models.cell import Cell
 from lte_cell_scanner_tpu_torch.parallel.fc_sweep import (StackDecode,
-                                                          device_planes,
-                                                          flat_stack,
                                                           scan_shards,
                                                           sweep_devices,
                                                           tables_to_peaks)
 from lte_cell_scanner_tpu_torch.search.cell_search import dedup
 from lte_cell_scanner_tpu_torch.utils.device import (HostFetch,
+                                                     device_planes,
+                                                     flat_stack,
                                                      full_f32_matmuls)
 from lte_cell_scanner_tpu_torch.utils.profiling import TRACER
 

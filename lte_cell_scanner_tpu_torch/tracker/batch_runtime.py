@@ -77,6 +77,7 @@ from lte_cell_scanner_tpu_torch.ops.sync_torch import cconj, cmul
 from lte_cell_scanner_tpu_torch.tracker import batch_frontend as bf
 from lte_cell_scanner_tpu_torch.tracker.state import GlobalState, TrackedCell
 from lte_cell_scanner_tpu_torch.utils.device import (HostFetch,
+                                                     PinnedStaging,
                                                      full_f32_matmuls,
                                                      launch_device,
                                                      resolve_device, to_host)
@@ -236,7 +237,7 @@ class BatchTrackerEngine:
         # pinned host buffers of the cycle's one upload.
         cuda = self.device.type == "cuda"
         self._graphs = _GraphCache(self.device) if cuda else None
-        self._staging = _Staging(self.device) if cuda else None
+        self._staging = PinnedStaging(self.device) if cuda else None
 
     def _up(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -1367,37 +1368,6 @@ def _views(buf: torch.Tensor, arrays, offsets) -> list:
     ``arrays`` at ``offsets``: what :func:`_write` wrote there."""
     return [buf[o:o + a.nbytes].view(_TORCH_DTYPES[a.dtype]).view(a.shape)
             for a, o in zip(arrays, offsets)]
-
-
-class _Staging:
-    """Two pinned host buffers that a cycle's plans take in turn. A buffer
-    is handed out again only once the copy that last read it has run (an
-    event recorded after it, :meth:`sent`), so the host never overwrites a
-    copy still in flight."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.bufs = [None, None]
-        self.events = [torch.cuda.Event(), torch.cuda.Event()]
-        self.used = [False, False]
-        self.turn = 0
-
-    def take(self, nbytes: int) -> torch.Tensor:
-        """The next buffer, of at least ``nbytes`` bytes."""
-        self.turn ^= 1
-        if self.used[self.turn]:
-            self.events[self.turn].synchronize()
-        buf = self.bufs[self.turn]
-        if buf is None or buf.numel() < nbytes:
-            buf = self.bufs[self.turn] = torch.empty(
-                2 * nbytes, dtype=torch.uint8, pin_memory=True)
-        return buf
-
-    def sent(self) -> None:
-        """The copy out of the buffer :meth:`take` last handed out is
-        enqueued on the device's current stream."""
-        self.events[self.turn].record(torch.cuda.current_stream(self.device))
-        self.used[self.turn] = True
 
 
 class _GraphCache:

@@ -17,7 +17,9 @@ tests/test_torch_engine_graphs.py``): the benchmark's one-cell site
 tracked with its programs replayed from CUDA graphs and forced eager (the
 graph cache monkeypatched to hand out nothing) ends with the same global
 frequency offset, frame timing, ac_fd and ac_td bits and MIB decodes, and
-the tracer counts two replays a block on graphs.
+the tracer counts two replays a block on graphs; either way the cycle's
+upload went through the engine's two pinned buffers
+(``utils/device.py::PinnedStaging``).
 """
 
 import json
@@ -30,6 +32,7 @@ import torch
 from lte_cell_scanner_tpu_torch.parallel.multichip_checks import (
     tracker_cycle)
 from lte_cell_scanner_tpu_torch.tracker import batch_runtime as br
+from lte_cell_scanner_tpu_torch.utils.device import PinnedStaging
 from torch_one_thread import _one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -194,3 +197,7 @@ def test_graph_replay_is_invisible(card, monkeypatch):
         assert g.frame_timing == e.frame_timing
         for name in ("ac_fd", "ac_td"):
             _same(getattr(g, name), getattr(e, name))
+    for trk in (graphs, eager):
+        staging = trk.engine._staging
+        assert isinstance(staging, PinnedStaging)
+        assert all(b is not None and b.is_pinned() for b in staging.bufs)

@@ -29,6 +29,7 @@ from lte_cell_scanner_tpu_torch.parallel import fc_sweep
 from lte_cell_scanner_tpu_torch.search import cli
 from lte_cell_scanner_tpu_torch.search.cell_search import cell_search
 from lte_cell_scanner_tpu_torch.search.pipeline import pipelined_search_sweep
+from lte_cell_scanner_tpu_torch.utils.device import device_planes, flat_stack
 from torch_one_thread import _one_torch_thread  # noqa: F401
 
 FSET = np.arange(-2, 3) * 5e3
@@ -215,7 +216,7 @@ def test_plans_with_cap_bases_match_jax(planes_u8):
             getattr(mine, f)[mask],
             (getattr(single, f) + base.reshape(shape))[mask], err_msg=f)
 
-    flat = fc_sweep.flat_stack(fc_sweep.device_planes(planes_u8, "cpu"))
+    flat = flat_stack(device_planes(planes_u8, "cpu"))
     synced = sync_torch.sss_foe_batch(cells, flat, 3.0, n_cap=n_cap,
                                       cap_bases=bases)
     for cp in ("normal", "extended"):
