@@ -75,11 +75,17 @@ Phases; the script exits non-zero if any fails:
    --sweep-batch 32 with --simulate -r, then --load; the sweep's ms per
    carrier (serial, whole stack, pipelined; host clock, median of 5), K1
    batched against 64 one-capture launches (CUDA events) and the whole
-   stack's device-busy share; bench_wideband at 16 and 296 carriers; the
-   wideband path: one 30.72 Msps recording of 80 ms around 739 MHz with
-   four planted cells (271 at 741.0, 503 at 732.7, 90 at 726.9 and 302 at
-   753.8 MHz, the top usable carrier), its 296 carriers channelized in one
-   call (held to the float64 decimation and the per-carrier form) and
+   stack's device-busy share; the peak path: the greedy peak kernel on
+   the scan tables of the first 1, 121 and 271 sweep carriers (37
+   hypotheses), the sweep's first-pass tables and the kernel's at 102
+   trips equal to the plain loop's to the bit, its time (CUDA events)
+   against its byte bound and the plain loop's, and a capture whose
+   table fills at 64 and 102 trips; bench_wideband at 16 and 296
+   carriers; the wideband path: one 30.72 Msps recording of 80 ms
+   around 739 MHz with four planted cells (271 at 741.0, 503 at 732.7,
+   90 at 726.9 and 302 at 753.8 MHz, the top usable carrier), its 296
+   carriers channelized in one call (held to the float64 decimation and
+   the per-carrier form) and
    swept as one stack (K1 once over 296 captures, checked against its
    plain version), every plant decoded as planted and no cell more than 1
    MHz from one, the plants and two empty carriers equal to a
@@ -154,8 +160,8 @@ Phases; the script exits non-zero if any fails:
    (CUDA events), the host tracker's ms per block against the engine's.
 
 Each kernel's ``launches`` in the kernels line is the sum over the nine
-paths' runs, ``launches_by_path`` the split. The line before the last is
-{"kernels": [...]}; the last line is
+paths' runs and the peak path's, ``launches_by_path`` the split. The
+line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 this file, it exits with 2 and prints no result.
 """
@@ -197,10 +203,10 @@ TRACKER_SIG = dict(n_id_1=90, n_id_2=1, snr_db=15, freq_offset=4e3,
 CAP_CELLS, CHUNK_MS = 96, 300.0
 WARM_CYCLES, TIMED_CYCLES, PROFILED_CYCLES = 2, 5, 1
 # Each path's kernels: a path's run must launch every one of them.
-SEARCH_KERNELS = ("xcorr_fold", "fd_demod", "viterbi")
+SEARCH_KERNELS = ("xcorr_fold", "fd_demod", "viterbi", "peak_greedy")
 TRACKER_KERNELS = ("fd_demod_stream", "viterbi")
 TOOLS_KERNELS = ("xcorr_fold", "xcorr_fold3", "xcorr_fold3_bf16", "fd_demod",
-                 "fd_demod_stream", "viterbi")
+                 "fd_demod_stream", "viterbi", "peak_greedy")
 # The Monte-Carlo floor of the JAX package's MC_r05.json: 50 trials per
 # point, ppm 10, seed 0; there 50/50 at -10 dB and 43/50 at -12 dB.
 MC_SNRS, MC_TRIALS, MC_REF = (-10.0, -12.0), 50, {-10.0: 50, -12.0: 43}
@@ -218,7 +224,10 @@ MC64_MIN, MC64_MAX_FALSE = 5, 1
 SWEEP_B, SWEEP_PIPE, SWEEP_REPS, SWEEP_SEED = 64, (128, 32), 5, 11
 SWEEP_CELL90 = dict(n_id_1=30, n_id_2=0, snr_db=15.0, freq_offset=6e3,
                     n_rb_dl=75, seed=7)
-SWEEP_KERNELS = ("xcorr_fold", "fd_demod", "viterbi")
+SWEEP_KERNELS = ("xcorr_fold", "fd_demod", "viterbi", "peak_greedy")
+# The peak kernel's stacks: one capture, band17's 121 carriers,
+# wideband20's 271.
+PEAK_SIZES = (1, 121, 271)
 
 # The wideband path (search/wideband.py): one 30.72 Msps recording of 80 ms
 # (n_wide = (153600 + 10) x 16 samples, the channelizer's FIR start-up
@@ -1093,6 +1102,110 @@ def sweep_path(fset, close) -> dict:
     return out
 
 
+def peak_path() -> dict:
+    """The greedy peak search's kernel (csrc/peak_greedy.cu) on the
+    sweep's scan tables at B = 1, 121 and 271 (the first carriers of
+    sweep_stack, band17's 37 hypotheses; K1 over the stack, the fold's
+    strided single): the sweep's first-pass tables (fc_sweep.scan_shards)
+    and the kernel's at PEAK_BOUND trips equal to peak_search_plain's on
+    the card, to the bit (the NaN-aware max |got - want| and the int32
+    words that differ, measured and returned); the kernel's time (CUDA
+    events, median of REPS, the tables warm in L2 as the sweep leaves
+    them) against its byte
+    bound, each capture's 115,200 bytes of pow rows read once over
+    PEAK_BYTES, and against the plain loop's at MAX_PEAKS trips; then one
+    capture whose table fills (34 peaks a row) at both trip counts: a
+    trip's latency."""
+    import torch
+
+    from lte_cell_scanner_tpu_torch import kernels
+    from lte_cell_scanner_tpu_torch.constants import DS_COMB_ARM, HALF_FRAME
+    from lte_cell_scanner_tpu_torch.ops.peak_torch import (
+        MAX_PEAKS, PEAK_BOUND, peak_search_device, peak_search_plain)
+    from lte_cell_scanner_tpu_torch.parallel import fc_sweep
+    from lte_cell_scanner_tpu_torch.search.cell_search import \
+        generate_search_sets
+    from lte_cell_scanner_tpu_torch.utils.device import device_planes
+
+    dev = torch.device("cuda")
+    before = dict(kernels.LAUNCHES)
+    out = {"sizes": {}, "max_abs_err": 0.0}
+
+    def table_err(got, want) -> dict:
+        """NaN-aware max |got - want| (0 where both are NaN, inf where one
+        is) and the count of int32 words that differ; the error folds
+        into out["max_abs_err"]."""
+        torch.cuda.synchronize()
+        g, w = got.double(), want.double()
+        d = torch.where((g == w) | (g.isnan() & w.isnan()), 0.0,
+                        (g - w).abs().nan_to_num(nan=float("inf")))
+        e = dict(max_abs_err=float(d.max()), differing_words=int(
+            (got.view(torch.int32) != want.view(torch.int32)).sum()))
+        out["max_abs_err"] = max(out["max_abs_err"], e["max_abs_err"])
+        return e
+
+    planes, fcs, fcp, _ = sweep_stack(max(PEAK_SIZES))
+    _, fset = generate_search_sets(FC, FC, 120)
+    for B in PEAK_SIZES:
+        cap = device_planes(planes[:B], dev)
+        scan, = fc_sweep.scan_shards([cap], [(0, B)], fcs[:B], fcp[:B],
+                                     fset, 1.92e6)
+        args = (scan.packed, scan.single, scan.r_norm, DS_COMB_ARM)
+        plain = {m: peak_search_plain(*args, m)
+                 for m in (MAX_PEAKS, PEAK_BOUND)}
+        e64 = table_err(scan.tables, plain[MAX_PEAKS])
+        check(e64["differing_words"] == 0,
+              f"peak_greedy B={B}: the sweep's first-pass tables equal the "
+              f"plain loop's to the bit ({e64})")
+        e102 = table_err(peak_search_device(*args, PEAK_BOUND),
+                         plain[PEAK_BOUND])
+        check(e102["differing_words"] == 0,
+              f"peak_greedy B={B} at {PEAK_BOUND} trips equals the plain "
+              f"loop to the bit ({e102})")
+        r = dict(max_abs_err=max(e64["max_abs_err"], e102["max_abs_err"]),
+                 differing_words=e64["differing_words"]
+                 + e102["differing_words"],
+                 ms=cuda_ms(lambda: peak_search_device(*args)),
+                 plain_ms=cuda_ms(lambda: peak_search_plain(*args,
+                                                            MAX_PEAKS)),
+                 bound_ms=B * 3 * HALF_FRAME * 4 / PEAK_BYTES * 1e3,
+                 peaks=int((plain[MAX_PEAKS][:, :, 0] > 0).sum()))
+        out["sizes"][B] = r
+        print(f"peak_greedy B={B} ({r['peaks']} peaks): {r['ms']:.4f} ms, "
+              f"byte bound {r['bound_ms']:.5f} ms "
+              f"({100 * r['bound_ms'] / r['ms']:.1f}%), plain loop "
+              f"{r['plain_ms']:.3f} ms", flush=True)
+        del cap, scan, args, plain
+
+    # One capture whose table fills: 34 peaks a row, 275 lags apart.
+    rng = np.random.default_rng(SWEEP_SEED)
+    dense = np.zeros((1, 7, HALF_FRAME), np.float32)
+    for row in range(3):
+        dense[0, row, row * 91 + 275 * np.arange(34)] = rng.uniform(
+            1.0, 1.5, 34)
+    dense[0, 3:6] = rng.integers(0, len(fset), (3, HALF_FRAME))
+    dense[0, 6] = 1e-6
+    args = (torch.from_numpy(dense).to(dev),
+            torch.from_numpy(rng.uniform(0.0, 1.0, (
+                1, 3, HALF_FRAME, len(fset))).astype(np.float32)).to(dev),
+            1.0, DS_COMB_ARM)
+    for m in (MAX_PEAKS, PEAK_BOUND):
+        want = peak_search_plain(*args, m)
+        e = table_err(peak_search_device(*args, m), want)
+        check(e["differing_words"] == 0
+              and int((want[0, :, 0] > 0).sum()) == m,
+              f"peak_greedy on a table that fills, {m} trips: {m} peaks, "
+              f"equal to the plain loop to the bit ({e})")
+        out[f"dense{m}_ms"] = cuda_ms(lambda: peak_search_device(*args, m))
+    t64, t102 = out[f"dense{MAX_PEAKS}_ms"], out[f"dense{PEAK_BOUND}_ms"]
+    print(f"peak_greedy, a table that fills: {t64:.4f} ms at {MAX_PEAKS} "
+          f"trips, {t102:.4f} ms at {PEAK_BOUND} "
+          f"({1e3 * t102 / PEAK_BOUND:.2f} us a trip)", flush=True)
+    out["launches"] = {k: n - before[k]
+                       for k, n in kernels.LAUNCHES.items()}
+    return out
+
+
 def wideband_recording() -> np.ndarray:
     """The wideband path's recording: the plants upsampled x16, each
     shifted to its carrier, summed, plus complex Gaussian noise (0.001 per
@@ -1145,9 +1258,8 @@ def wideband_stages(wide, fcs, fset) -> dict:
     lap("scan")
     r_norm = r_th1_normalized(n_comb, DS_COMB_ARM)
     scan = fc_sweep.StackScan(
-        peak_search_device(packed, single, r_norm, DS_COMB_ARM,
-                           early_exit=False), packed, single, r_norm,
-        DS_COMB_ARM)
+        peak_search_device(packed, single, r_norm, DS_COMB_ARM), packed,
+        single, r_norm, DS_COMB_ARM)
     peaks = fc_sweep.tables_to_peaks(scan.host_tables(), fcs, fset)
     lap("peaks")
     del scan, packed, single
@@ -2654,6 +2766,10 @@ def main() -> int:
     sweep_launches = {k: sweep["launches"]["whole"][k]
                       + sweep["launches"]["pipelined"][k]
                       for k in kernels.KERNELS}
+    # The peak kernel on the sweep's scan tables.
+    t0 = time.perf_counter()
+    peak = peak_path()
+    print(f"peak path: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # The wideband path.
     t0 = time.perf_counter()
@@ -2666,7 +2782,7 @@ def main() -> int:
     path_launches = {"search": launches, "tracker": trk_launches,
                      "tools": tools_launches, "sweep": sweep_launches,
                      "wideband": wband["launches"],
-                     "multi": multi["launches"]}
+                     "multi": multi["launches"], "peaks": peak["launches"]}
 
     # ---- 4. timing.
     t_scan = cuda_ms(lambda: xcorr_torch.xcorr_fold(
@@ -2935,6 +3051,17 @@ def main() -> int:
              max_abs_err=vit_err, ms=t_vit,
              plain_ms=t_vit_plain, bound_ms=vit_b[0], bound_by=vit_b[1],
              library_ms=None),
+        dict(name="peak_greedy", route="cuda",
+             source="lte_cell_scanner_tpu_torch/csrc/peak_greedy.cu",
+             replaces="none: lte_cell_scanner_tpu/ops/peak_jax.py's loop is "
+                      "plain JAX",
+             max_abs_err=peak["max_abs_err"], bound_by="bytes",
+             library_ms=None,
+             **{k: peak["sizes"][121][k]
+                for k in ("ms", "plain_ms", "bound_ms")},
+             **{f"batch{b}_{k}": v for b, r in peak["sizes"].items()
+                for k, v in r.items()},
+             dense64_ms=peak["dense64_ms"], dense102_ms=peak["dense102_ms"]),
     ]
     # Each kernel's launches over the paths' runs, and by path.
     for r in rows:

@@ -3,10 +3,11 @@
 Each ``csrc/<source>.cu`` exports one ``extern "C"`` launcher per kernel
 (``xcorr_fold.cu`` three: the 2x2 kernel and the float32 and bfloat16
 modes of the Karatsuba kernel; ``fd_demod.cu`` two: the MIB and the
-stream mode) that takes raw device pointers and a CUDA stream and returns
-``cudaGetLastError()``. A source is compiled for Hopper (``sm_90a``) into
-a shared library under ``build/kernels/`` at the root of the checkout,
-named by a hash of its source so that an edited source is rebuilt.
+stream mode; ``peak_greedy.cu`` the greedy peak search) that takes raw
+device pointers and a CUDA stream and returns ``cudaGetLastError()``. A
+source is compiled for Hopper (``sm_90a``) into a shared library under
+``build/kernels/`` at the root of the checkout, named by a hash of its
+source so that an edited source is rebuilt.
 Nothing is built or loaded at import time: the first launch builds what
 it needs, and :func:`build` compiles several sources at once, one nvcc
 process each.
@@ -33,9 +34,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 _XCORR_ARGS = (_P, _I, _P, _P, _I, _I, _P, _P)
 _XCORR_BATCH_ARGS = (_P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P)
 _FD_DEMOD_ARGS = (_P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P)
+_PEAK_ARGS = (_P, _P, _I, _L, _L, _L, _L, _F, _I, _I, _F, _F, _P, _P)
 # Source, launcher name and argument types of each kernel's C interface.
 _SIGNATURES = {
     "xcorr_fold": ("xcorr_fold", "xcorr_fold_launch", _XCORR_BATCH_ARGS),
@@ -45,6 +49,7 @@ _SIGNATURES = {
     "fd_demod": ("fd_demod", "fd_demod_launch", _FD_DEMOD_ARGS),
     "fd_demod_stream": ("fd_demod", "fd_demod_stream_launch", _FD_DEMOD_ARGS),
     "viterbi": ("viterbi", "viterbi_launch", (_P, _I, _I, _P, _P, _P, _P)),
+    "peak_greedy": ("peak_greedy", "peak_greedy_launch", _PEAK_ARGS),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}     # by source

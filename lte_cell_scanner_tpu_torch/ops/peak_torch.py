@@ -4,10 +4,12 @@ Counterpart of lte_cell_scanner_tpu/ops/peak_jax.py and functionally
 identical to the host search ops/peak.py::peak_search (reference:
 src/searcher.cpp:422-510, Matlab/peak_search.m): after each extraction the
 same PSS row is cleared within +/-274 lags, other rows there below -8 dB,
-and everything below -12 dB. The loop is sequential by nature; each trip
-is a handful of vectorized tensor ops on the (B, 3, 9600) tables of B
-captures (the JAX sweep maps the one-capture loop over its captures), and
-the host reads the stop flag only every few trips, or never.
+and everything below -12 dB. The loop is sequential by nature. On a card
+it is one launch of the ``peak_greedy`` kernel (csrc/peak_greedy.cu): a
+block a capture, its working rows in shared memory, each capture stopping
+on the card at its first failed trip, so no trip waits on the host. The
+plain version, a handful of vectorized tensor ops a trip on the (B, 3,
+9600) tables of B captures, serves CPU tensors.
 """
 
 from __future__ import annotations
@@ -18,9 +20,12 @@ import numpy as np
 import torch
 
 from lte_cell_scanner_tpu_torch.constants import HALF_FRAME, RX_CUTOFF
+from lte_cell_scanner_tpu_torch.kernels import LAUNCHES
+from lte_cell_scanner_tpu_torch.kernels.build import check_launch, launcher
 from lte_cell_scanner_tpu_torch.models.cell import Cell
-from lte_cell_scanner_tpu_torch.utils.device import to_host
+from lte_cell_scanner_tpu_torch.utils.device import launch_device, to_host
 from lte_cell_scanner_tpu_torch.utils.dsp import chi2cdf_inv
+from lte_cell_scanner_tpu_torch.utils.profiling import TRACER
 
 MAX_PEAKS = 64  # table size of a first pass; real captures stay far below
 # The most peaks the greedy loop can yield: peaks on one PSS row lie more
@@ -29,7 +34,6 @@ MAX_PEAKS = 64  # table size of a first pass; real captures stay far below
 PEAK_BOUND = 3 * (HALF_FRAME // (2 * 137 + 1))
 _DB8 = 10.0 ** (-8.0 / 10.0)
 _DB12 = 10.0 ** (-12.0 / 10.0)
-_SYNC_EVERY = 8  # greedy trips between reads of the stop flag
 
 
 def r_th1_normalized(n_comb_xc: int, ds_comb_arm: int,
@@ -42,27 +46,15 @@ def r_th1_normalized(n_comb_xc: int, ds_comb_arm: int,
                  / (2 * ds_comb_arm + 1))
 
 
-def peak_search_device(packed: torch.Tensor, single: torch.Tensor,
-                       r_norm: float, ds_comb_arm: int,
-                       max_peaks: int = MAX_PEAKS,
-                       early_exit: bool = True) -> torch.Tensor:
-    """Extract up to max_peaks peaks, of one capture or of a stack.
-
-    packed (7, 9600) or (B, 7, 9600): rows 0-2 collapsed pow, 3-5
-    collapsed frq, 6 sp_incoherent; single (3, 9600, n_f) or
-    (B, 3, 9600, n_f). Returns (max_peaks, 4) or (B, max_peaks, 4) float32
-    rows [pow, refined_ind, foi, n_id_2]; pow == 0 marks unused slots (a
-    real peak always has pow > 0). Each trip takes one argmax per capture;
-    ties go to the first index. A capture that is done stays done: its
-    later trips change nothing, so the fixed trip count gives the same
-    tables. ``early_exit`` reads the stop flag on the host every
-    ``_SYNC_EVERY`` trips and stops once every capture is done; without it
-    the loop runs all max_peaks trips and never waits for the device (a
-    pipelined sweep).
+def peak_search_plain(packed: torch.Tensor, single: torch.Tensor,
+                      r_norm: float, ds_comb_arm: int,
+                      max_peaks: int = MAX_PEAKS) -> torch.Tensor:
+    """Plain PyTorch version of the ``peak_greedy`` kernel, on a stack:
+    packed (B, 7, 9600), single (B, 3, 9600, n_f); returns (B, max_peaks,
+    4). Each trip takes one argmax per capture; ties go to the first
+    index. A capture that is done stays done: its later trips change
+    nothing, so the loop runs all max_peaks trips and reads nothing back.
     """
-    if packed.dim() == 2:
-        return peak_search_device(packed[None], single[None], r_norm,
-                                  ds_comb_arm, max_peaks, early_exit)[0]
     dev = packed.device
     B = packed.shape[0]
     working = packed[:, 0:3].to(torch.float32).clone()      # (B, 3, 9600)
@@ -103,9 +95,52 @@ def peak_search_device(packed: torch.Tensor, single: torch.Tensor,
         w = torch.where(w < pp * _DB12, 0.0, w)
         working = torch.where(valid[:, None, None], w, working)
         done = ~valid
-        if early_exit and (trip + 1) % _SYNC_EVERY == 0 \
-                and bool(to_host(done.all())):
-            break
+    return out
+
+
+def peak_search_device(packed: torch.Tensor, single: torch.Tensor,
+                       r_norm: float, ds_comb_arm: int,
+                       max_peaks: int = MAX_PEAKS) -> torch.Tensor:
+    """Extract up to max_peaks peaks, of one capture or of a stack.
+
+    packed (7, 9600) or (B, 7, 9600): rows 0-2 collapsed pow, 3-5
+    collapsed frq, 6 sp_incoherent; single (3, 9600, n_f) or
+    (B, 3, 9600, n_f). Returns (max_peaks, 4) or (B, max_peaks, 4) float32
+    rows [pow, refined_ind, foi, n_id_2]; pow == 0 marks unused slots (a
+    real peak always has pow > 0). A CPU tensor takes the plain version; a
+    CUDA tensor launches the ``peak_greedy`` kernel once (packed
+    contiguous float32, single float32 at any strides, the fold's view),
+    which never waits for the card.
+    """
+    if packed.dim() == 2:
+        return peak_search_device(packed[None], single[None], r_norm,
+                                  ds_comb_arm, max_peaks)[0]
+    if packed.device.type == "cpu":
+        return peak_search_plain(packed, single, r_norm, ds_comb_arm,
+                                 max_peaks)
+    B = packed.shape[0]
+    if packed.dtype != torch.float32 or single.dtype != torch.float32 \
+            or tuple(packed.shape[1:]) != (7, HALF_FRAME) \
+            or single.dim() != 4 \
+            or tuple(single.shape[:3]) != (B, 3, HALF_FRAME) \
+            or single.device != packed.device \
+            or not packed.is_contiguous() or packed.data_ptr() % 16 \
+            or not 0 <= ds_comb_arm < HALF_FRAME:
+        raise ValueError(
+            "peak_search_device: want contiguous f32 packed (B, 7, 9600) "
+            "and f32 single (B, 3, 9600, n_f) on one device, got "
+            f"{packed.dtype} {tuple(packed.shape)}, {single.dtype} "
+            f"{tuple(single.shape)}")
+    out = torch.empty((B, max_peaks, 4), dtype=torch.float32,
+                      device=packed.device)
+    with launch_device(packed.device):
+        code = launcher("peak_greedy")(
+            packed.data_ptr(), single.data_ptr(), B, *single.stride(),
+            r_norm, ds_comb_arm, max_peaks, _DB8, _DB12, out.data_ptr(),
+            torch.cuda.current_stream(packed.device).cuda_stream)
+    check_launch("peak_greedy", code)
+    LAUNCHES["peak_greedy"] += 1
+    TRACER.count("peaks.kernel_launches")
     return out
 
 

@@ -307,9 +307,9 @@ class StackScan:
     def host_tables(self, tables: Optional[np.ndarray] = None
                     ) -> List[np.ndarray]:
         """Each capture's peak table on the host (``tables``: the first
-        pass's, already copied down). The first pass runs a fixed trip
-        count and never waits for the card; a full table is redone on the
-        scan's device (:func:`~lte_cell_scanner_tpu_torch.ops.peak_torch.
+        pass's, already copied down). The first pass never waits for the
+        card; a full table is redone on the scan's device
+        (:func:`~lte_cell_scanner_tpu_torch.ops.peak_torch.
         redo_full_tables`)."""
         if tables is None:
             tables = to_host(self.tables)
@@ -324,8 +324,7 @@ def scan_shards(caps: Sequence[torch.Tensor], bounds, fc_list, fcp,
     """Scan and first-pass peak tables of each shard's (hi - lo, 2, n)
     float32 stack ``caps[k]`` on its device, captures ``bounds[k]`` of
     the sweep: one scan launch per shard, every shard dispatched before
-    any is read. The peak loop runs its full trip count and never waits
-    for the card."""
+    any is read. The peak search never waits for the card."""
     inputs = shard_inputs(fc_list, fcp, f_search_set, fs_programmed,
                           caps[0].shape[2], [c.device for c in caps], bounds,
                           share_banks, non_blocking)
@@ -341,7 +340,7 @@ def _scan(caps, inputs, n_comb_xc, n_comb_sp, ds_comb_arm, max_peaks):
         packed, single = xcorr_core_batch(cap, banks, bank_idx, starts,
                                           n_comb_xc, n_comb_sp, ds_comb_arm)
         tables = peak_search_device(packed, single, r_norm, ds_comb_arm,
-                                    max_peaks=max_peaks, early_exit=False)
+                                    max_peaks=max_peaks)
         scans.append(StackScan(tables, packed, single, r_norm, ds_comb_arm))
     return scans
 

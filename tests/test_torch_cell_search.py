@@ -115,9 +115,9 @@ def test_table_full_redo_stays_on_device(monkeypatch):
     device_search = peak_torch.peak_search_device
 
     def spy(packed, single, r_norm, ds_comb_arm,
-            max_peaks=peak_torch.MAX_PEAKS, early_exit=True):
+            max_peaks=peak_torch.MAX_PEAKS):
         table = device_search(packed, single, r_norm, ds_comb_arm,
-                              max_peaks, early_exit)
+                              max_peaks)
         runs.append((max_peaks, packed.device, table))
         return table
 

@@ -137,8 +137,7 @@ def test_full_table_redo_is_unbounded_search():
     single = rng.uniform(0.0, 1.0, (2, 3, 9600, n_f)).astype(np.float32)
     packed, single = torch.from_numpy(packed), torch.from_numpy(single)
     r_norm = peak_torch.r_th1_normalized(15, ds)
-    first = peak_torch.peak_search_device(packed, single, r_norm, ds,
-                                          early_exit=False)
+    first = peak_torch.peak_search_device(packed, single, r_norm, ds)
     scan = fc_sweep.StackScan(first, packed, single, r_norm, ds)
     tables = scan.host_tables()
     assert (first[0, :, 0] > 0).all()
