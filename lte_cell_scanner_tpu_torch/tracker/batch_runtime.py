@@ -328,7 +328,9 @@ class BatchTrackerEngine:
         """One engine cycle over ``cells``: the tracer's span ``engine``,
         its stages ``engine.demod`` (plan, upload and dispatch, then
         ingestion), ``engine.route``, ``engine.stats`` (plan and dispatch,
-        then finish) and ``engine.finalize`` (with the MIB decode)."""
+        then finish) and ``engine.finalize`` (with the MIB decode); the
+        counters ``engine.cell_cycles`` (the cells that had symbols this
+        cycle) and ``engine.mib_decodes`` (each MIB the cycle decoded)."""
         cells = [c for c in cells if not c.kill_me]
         live = {_key(c) for c in cells}
         for k in list(self.ctx):
@@ -347,6 +349,7 @@ class BatchTrackerEngine:
         work = [(c, list(c.fifo)) for c in cells if c.fifo]
         for c, _ in work:
             c.fifo.clear()
+        TRACER.count("engine.cell_cycles", len(work))
         if work:
             # Both plans are made on the host first (the stats plan needs
             # only host-side metadata) and travel in one upload. The stats
@@ -1069,6 +1072,7 @@ class BatchTrackerEngine:
                     if ok:
                         cell.mib_decode_failures = 0.0
                         cell.mib_decode_successes += 1
+                        TRACER.count("engine.mib_decodes")
                     else:
                         cell.mib_decode_failures += 1
                 elif ok:            # hunting cell locks on
@@ -1077,6 +1081,7 @@ class BatchTrackerEngine:
                     ctx.mib_fifo_synchronized = True
                     cell.mib_decode_failures = 0.0
                     cell.mib_decode_successes += 1
+                    TRACER.count("engine.mib_decodes")
                     again = True
                 else:               # hunting: slide one frame
                     cell.mib_decode_failures += 0.25
